@@ -1,0 +1,138 @@
+"""Least-squares endpoint refit for fixed weights, 1 plane, LDR.
+
+Port of ``astcenc_tpu/ops/recompute.py::recompute_ideal_colors_1plane``
+(:14-149; reference astcenc_ideal_endpoints_and_weights.cpp:1146-1368):
+per partition, the 2x2 normal equations of each channel and of the
+RGB-scale line, as masked reductions over the texel axis.
+
+The texel sums run in the order of kernel K2's warp reduction
+(``lane_sum``), so the plain version and the kernel fit bit-identical
+endpoints; a last-bit difference there can flip an endpoint quantization
+and move a trial error by percents.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def lane_sum(x, dim: int):
+    """Sum over ``dim`` in the order of a 32-lane warp reduction: element t
+    goes to lane t % 32, each lane adds its elements in order, then the
+    lanes combine by an xor butterfly (csrc/common.cuh::warp_sum)."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    pad = (-n) % 32
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    x = x.reshape(x.shape[:-1] + (-1, 32))
+    v = x[..., 0, :]
+    for i in range(1, x.shape[-2]):
+        v = v + x[..., i, :]
+    lane = torch.arange(32, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[..., lane ^ o]
+    return v[..., 0]
+
+
+def _psum(pmask, x):
+    """Per-partition texel sum: (N, T, P), (N, T[, C]) -> (N, P[, C])."""
+    if x.dim() == 2:
+        return lane_sum(pmask * x[..., None], 1)
+    return lane_sum(pmask[..., None] * x[:, :, None, :], 1)
+
+
+def _sum3(v):
+    return (v[..., 0] + v[..., 1]) + v[..., 2]
+
+
+def recompute_ideal_colors_1plane(texels, pmask, counts, undec_weights,
+                                  channel_weight, ep0_in, ep1_in):
+    """Refit endpoints per partition given per-texel weights.
+
+    Args:
+      texels: (N, T, 4); pmask: (N, T, P) one-hot; counts: (N, P).
+      undec_weights: (N, T) infilled weights in [0, 1].
+      channel_weight: static 4-tuple.
+      ep0_in/ep1_in: (N, P, 4) previous endpoints, kept where a solve fails.
+
+    Returns dict: ep0, ep1, rgbs (N, P, 4).
+    """
+    dev = texels.device
+    cw = torch.tensor(channel_weight, dtype=torch.float32, device=dev)
+    ls_weight = float(channel_weight[0] + channel_weight[1]
+                      + channel_weight[2])
+    idx = undec_weights
+    om = 1.0 - idx
+
+    rgba_sum = _psum(pmask, texels) * cw
+    tc = counts.to(torch.float32)
+    rgba_weight_sum = torch.clamp(cw * tc[..., None], min=1e-17)
+    mean_rgb = (rgba_sum / rgba_weight_sum)[..., :3]
+    # Correctly rounded float32 sqrt, as sqrtf in the kernel (the CPU
+    # float32 torch.sqrt is not).
+    norm = torch.sqrt(_sum3(mean_rgb * mean_rgb).double()).float()[..., None]
+    scale_dir = mean_rgb / torch.where(norm > 0, norm, 1.0)
+    scale_dir_t = torch.einsum("ntp,npc->ntc", pmask, scale_dir)
+    scale = _sum3(scale_dir_t * texels[..., :3])
+
+    big = 1e10
+    inpart = pmask.transpose(1, 2) > 0
+    scale_min = torch.where(inpart, scale[:, None, :], big).amin(2)
+    scale_max = torch.where(inpart, scale[:, None, :], -big).amax(2)
+    wmin = torch.where(inpart, idx[:, None, :], 1.0).amin(2)
+    wmax = torch.where(inpart, idx[:, None, :], 0.0).amax(2)
+
+    left_s = _psum(pmask, om * om)
+    middle_s = _psum(pmask, om * idx)
+    right_s = _psum(pmask, idx * idx)
+    cvy = _psum(pmask, texels * idx[..., None]) * cw
+    cvx = _psum(pmask, texels * om[..., None]) * cw
+    sv0 = _psum(pmask, om * scale) * ls_weight
+    sv1 = _psum(pmask, idx * scale) * ls_weight
+
+    left = left_s[..., None] * cw
+    middle = middle_s[..., None] * cw
+    right = right_s[..., None] * cw
+    lm0 = left_s * ls_weight
+    lm1 = middle_s * ls_weight
+    lm2 = right_s * ls_weight
+
+    scalediv = torch.clamp(scale_min / torch.clamp(scale_max, min=1e-10),
+                           0.0, 1.0)
+    sds = scale_dir * scale_max[..., None]
+    rgbs = torch.cat([sds, scalediv[..., None]], -1)
+    all_same = wmin >= wmax * 0.999
+
+    avg = (cvx + cvy) / rgba_weight_sum
+    notnan = ~torch.isnan(avg)
+    ep0_same = torch.where(notnan, avg, ep0_in)
+    ep1_same = torch.where(notnan, avg, ep1_in)
+    rgbs_same = torch.cat([sds, torch.ones_like(scalediv[..., None])], -1)
+
+    det = left * right - middle * middle
+    rdet = 1.0 / det
+    mss = left * left + 2.0 * middle * middle + right * right
+    ep0_f = (right * cvx - middle * cvy) * rdet
+    ep1_f = (left * cvy - middle * cvx) * rdet
+    full = ((det.abs() > mss * 1e-4)
+            & ~(torch.isnan(ep0_f) | torch.isnan(ep1_f)))
+    ep0_fit = torch.where(full, ep0_f, ep0_in)
+    ep1_fit = torch.where(full, ep1_f, ep1_in)
+
+    ls_det = lm0 * lm2 - lm1 * lm1
+    ls_rdet = 1.0 / ls_det
+    ls_mss = lm0 * lm0 + 2.0 * lm1 * lm1 + lm2 * lm2
+    se0 = (lm2 * sv0 - lm1 * sv1) * ls_rdet
+    se1 = (lm0 * sv1 - lm1 * sv0) * ls_rdet
+    ls_ok = ((ls_det.abs() > ls_mss * 1e-4) & ~torch.isnan(se0)
+             & ~torch.isnan(se1) & (se0 < se1))
+    rgbs_fit = torch.cat(
+        [scale_dir * se1[..., None],
+         (se0 / torch.where(se1 != 0, se1, 1.0))[..., None]], -1)
+    rgbs_out = torch.where(ls_ok[..., None], rgbs_fit, rgbs)
+
+    as_ = all_same[..., None]
+    return {"ep0": torch.where(as_, ep0_same, ep0_fit),
+            "ep1": torch.where(as_, ep1_same, ep1_fit),
+            "rgbs": torch.where(as_, rgbs_same, rgbs_out)}

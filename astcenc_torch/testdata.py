@@ -1,0 +1,53 @@
+"""Seeded synthetic test images.
+
+Natural-looking RGBA content for tests and the card smoke run, made with
+numpy from a seed: a smooth luminance field with per-channel tints, soft
+colour discs with hard edges, darker bars, and noise.
+
+Most of the noise is shared by all four channels, as luminance noise is in
+photographs, so every block's channels are clearly correlated. A block with
+nearly uncorrelated channels can have a float32 channel covariance that
+rounds to exactly zero, and such blocks are eligible for the 2-plane stage
+in the encoder's configurations with a correlation limit of 0, which the
+port does not run yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def synthetic_image(height: int, width: int, seed: int = 0) -> np.ndarray:
+    """(height, width, 4) uint8 RGBA image made from ``seed``."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:height, 0:width].astype(np.float32)
+    u = x / max(width - 1, 1)
+    v = y / max(height - 1, 1)
+    f = rng.uniform(1.0, 4.0, 2)
+    ph = rng.uniform(0, 2 * np.pi, 2)
+    lum = 0.5 + 0.25 * (np.sin(2 * np.pi * f[0] * (u + 0.6 * v) + ph[0])
+                        * np.cos(np.pi * f[1] * (v - 0.3 * u) + ph[1]))
+    img = np.empty((height, width, 4), np.float32)
+    gain = rng.uniform(0.7, 1.1, 4)
+    tph = rng.uniform(0, 2 * np.pi, 4)
+    for c in range(4):
+        tint = 0.08 * np.sin(2 * np.pi * (u * (c + 1) * 0.7 + v * 0.5)
+                             + tph[c])
+        img[..., c] = (lum - 0.5) * gain[c] + 0.5 + tint
+    # Discs of a flat colour near the local tone: hard edges.
+    for _ in range(max(4, (height * width) // 20000)):
+        cx, cy = rng.uniform(0, width), rng.uniform(0, height)
+        r = rng.uniform(0.02, 0.12) * min(height, width)
+        shade = rng.uniform(0.3, 0.7)
+        col = shade + rng.uniform(-0.05, 0.05, 4)
+        m = (x - cx) ** 2 + (y - cy) ** 2 < r * r
+        img[m] = 0.6 * img[m] + 0.4 * col
+    # Darker vertical bars (RGB only).
+    for _ in range(3):
+        x0 = int(rng.integers(0, width))
+        w = int(rng.integers(2, max(3, width // 16)))
+        img[:, x0:x0 + w, :3] = 0.5 + (img[:, x0:x0 + w, :3] - 0.5) * 0.8 - 0.1
+    shared = rng.normal(0.0, 0.03, (height, width, 1)).astype(np.float32)
+    own = rng.normal(0.0, 0.006, img.shape).astype(np.float32)
+    img = img + shared + own
+    return np.clip(np.floor(img * 255.0 + 0.5), 0, 255).astype(np.uint8)
