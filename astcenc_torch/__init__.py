@@ -5,9 +5,9 @@ PyTorch on an NVIDIA Hopper card. Plain tensor code is PyTorch; the trial
 front end (mode search) and the refinement rounds of the encoder are CUDA
 C++ kernels under ``csrc/``, built with nvcc at first use.
 
-The package never imports jax. The host-side NumPy table builders of the
-JAX package are reused through ``_host`` without running its
-``__init__``.
+The package never imports jax nor anything of the JAX package: it keeps
+its own copies of the host-side NumPy table builders (``config``,
+``tables``, ``codec/decode_tables``).
 """
 
 import torch as _torch

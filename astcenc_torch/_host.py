@@ -1,49 +1,12 @@
-"""Host-side NumPy tables of the JAX package, loaded without jax.
-
-Any import of ``astcenc_tpu.*`` runs ``astcenc_tpu/__init__.py``, which
-imports jax. The table builders themselves (``tables/*``, ``config.py``,
-``codec/decode_tables.py``) are pure NumPy, so this module registers a
-synthetic package whose ``__path__`` is the ``astcenc_tpu`` directory and
-imports them through it: the files stay one source, bit-exact against the
-reference, and ``astcenc_tpu/__init__.py`` never runs.
-
-It also turns the NumPy table dataclasses into device tensors.
-"""
+"""Device copies of the host NumPy table dataclasses."""
 
 from __future__ import annotations
 
 import dataclasses
-import importlib
-import os
-import sys
 import types
 
 import numpy as np
 import torch
-
-_PKG = __name__ + "_ref"          # "astcenc_torch._host_ref"
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "astcenc_tpu")
-
-
-def _register():
-    mod = sys.modules.get(_PKG)
-    if mod is None:
-        if not os.path.isfile(os.path.join(_SRC, "config.py")):
-            raise ImportError(f"host table sources not found under {_SRC}")
-        mod = types.ModuleType(_PKG)
-        mod.__path__ = [_SRC]
-        mod.__package__ = _PKG
-        sys.modules[_PKG] = mod
-    return mod
-
-
-_register()
-config = importlib.import_module(_PKG + ".config")
-ise = importlib.import_module(_PKG + ".tables.ise")
-quant = importlib.import_module(_PKG + ".tables.quant")
-bsd = importlib.import_module(_PKG + ".tables.bsd")
-decode_tables = importlib.import_module(_PKG + ".codec.decode_tables")
 
 
 def _to_torch(tab, device) -> types.SimpleNamespace:

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from .._host import decode_tables as _dt
+from . import decode_tables as _dt
 from ..ops import color_unquant as cuq
 from ..ops import softfloat as sf
 
@@ -76,6 +76,19 @@ def _lookup(tab, idx):
     """tab[idx] with the index clamped into range (gather semantics of
     the JAX reference)."""
     return tab[_i64(torch.clamp(idx, 0, tab.shape[0] - 1))]
+
+
+def block_types(t, pcb: torch.Tensor):
+    """Kind of each physical block, read from its header: (constant (N,)
+    bool, partition count (N,) int32, weight planes (N,) int32). Constant
+    blocks report 1 partition and 1 plane."""
+    bp = _bitplane(pcb)
+    block_mode = _read_static(bp, 0, 11)
+    const = (block_mode & 0x1FF) == 0x1FC
+    dual = _lookup(t.bm_dual, _lookup(t.block_mode_packed_index, block_mode))
+    pc = torch.where(const, 1, _read_static(bp, 11, 2) + 1)
+    planes = torch.where(const | (dual != 1), 1, 2).to(torch.int32)
+    return const, pc, planes
 
 
 def decompress_symbolic_batch(t, pcb: torch.Tensor, profile: int,

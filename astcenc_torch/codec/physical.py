@@ -15,7 +15,7 @@ import functools
 import numpy as np
 import torch
 
-from .._host import ise, quant
+from ..tables import ise, quant
 from .decompress import (C_QUINT_PAD, C_SLOTS, C_TRIT_PAD, W_QUINT_PAD,
                          W_SLOTS, W_TRIT_PAD)
 

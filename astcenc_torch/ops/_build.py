@@ -31,8 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 _lock = threading.Lock()
 _libs: dict = {}
-#: nvcc seconds per library compiled by this process (empty if every
-#: library was found built).
+#: Seconds from the start of the nvcc batch to each library compiled by
+#: this process (empty if every library was found built).
 build_seconds: dict = {}
 
 
@@ -78,25 +78,51 @@ def build_key(name: str) -> str:
     return h.hexdigest()[:16]
 
 
+#: The kernel sources: K1 msearch, K2 refine, K3 refine2, K4 psearch.
+KERNELS = ("msearch", "refine", "refine2", "psearch")
+
+
+def _lib_path(name: str) -> str:
+    return os.path.join(BUILD, f"lib{name}-{build_key(name)}.so")
+
+
+def build(names=KERNELS) -> None:
+    """Compile every library of ``names`` not built yet, one nvcc process
+    per source, all started together."""
+    with _lock:
+        todo = [n for n in names if not os.path.isfile(_lib_path(n))]
+        if not todo:
+            return
+        os.makedirs(BUILD, exist_ok=True)
+        nvcc = nvcc_path()
+        procs = {}
+        t0 = time.perf_counter()
+        for name in todo:
+            tmp = _lib_path(name) + f".{os.getpid()}.tmp"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+                   os.path.join(CSRC, name + ".cu")]
+            procs[name] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True))
+        errors = []
+        for name, (tmp, proc) in procs.items():
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed for {name}:\n{err}")
+                continue
+            os.replace(tmp, _lib_path(name))
+            build_seconds[name] = time.perf_counter() - t0
+        if errors:
+            raise RuntimeError("\n".join(errors))
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build (unless built from the same sources and flags) and load
     ``csrc/<name>.cu``."""
+    build((name,))
     with _lock:
         lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        src = os.path.join(CSRC, name + ".cu")
-        out = os.path.join(BUILD, f"lib{name}-{build_key(name)}.so")
-        if not os.path.isfile(out):
-            os.makedirs(BUILD, exist_ok=True)
-            tmp = out + f".{os.getpid()}.tmp"
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
-            t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name}:\n{res.stderr}")
-            os.replace(tmp, out)
-            build_seconds[name] = time.perf_counter() - t0
-        lib = ctypes.CDLL(out)
-        _libs[name] = lib
+        if lib is None:
+            lib = ctypes.CDLL(_lib_path(name))
+            _libs[name] = lib
         return lib

@@ -15,7 +15,7 @@ import functools
 import numpy as np
 import torch
 
-from .._host import ise, quant
+from ..tables import ise, quant
 from . import color_unquant as cuq
 
 _BIG = 1e30

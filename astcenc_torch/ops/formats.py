@@ -1,4 +1,4 @@
-"""Endpoint format selection, batched (1 partition).
+"""Endpoint format selection, batched.
 
 Port of ``astcenc_tpu/ops/formats.py`` (reference:
 astcenc_pick_best_endpoint_format.cpp): encoding-choice error estimates,
@@ -8,6 +8,8 @@ reference's loop-order tie breaks.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import torch
@@ -139,40 +141,104 @@ def color_error_tables_ldr(eci, ep0, ep1, counts, channel_weight):
     return be, torch.cat([fm_lo, fm_hi], -2)
 
 
-def best_for_bitcount(comb_err, comb_fmt, quant_mode_table_np, bitcounts_np):
-    """Per-mode best (quant, quant_mod, format, error) for its bit budget, 1
-    partition (reference: one_partition_find_best_combination_for_bitcount,
-    :678).
+def combine_partitions(be, fm, pc: int):
+    """Best combined (error, formats) per (quant, total integer count) for
+    2-4 partitions (reference: {two,three,four}_partitions_find_best_
+    combination_for_every_quantization_and_integer_count, :728, :842,
+    :967). Combos whose per-partition integer counts differ by more than
+    one are invalid; on equal error the later combo wins (the reference's
+    <= updates in enumeration order).
 
-    comb_err: (N, 21, 4) f32; comb_fmt: (N, 21, 4) int32; bitcounts_np: (M,)
-    bits available per mode. Returns dict of (N, M) tensors.
+    be/fm: (N, P, 21, 4). Returns (comb_err (N, 21, S) f32, comb_fmt
+    (N, 21, S, pc) int32) with S = 7, 10, 13 for pc = 2, 3, 4.
+    """
+    S = {2: 7, 3: 10, 4: 13}[pc]
+    N = be.shape[0]
+    dev = be.device
+    groups = [[] for _ in range(S)]
+    for combo in itertools.product(range(4), repeat=pc):
+        if max(combo) - min(combo) <= 1:
+            groups[sum(combo)].append(combo)
+    err_cols, fmt_cols = [], []
+    for intcnt in range(S):
+        combos = groups[intcnt]
+        if not combos:
+            err_cols.append(torch.full((N, 21), ERROR_CALC_DEFAULT,
+                                       device=dev))
+            fmt_cols.append(torch.zeros((N, 21, pc), dtype=torch.int32,
+                                        device=dev))
+            continue
+        errs = []
+        for c in combos:
+            acc = be[:, 0, :, c[0]]
+            for p in range(1, pc):
+                acc = acc + be[:, p, :, c[p]]
+            errs.append(torch.clamp(acc, max=1e10))
+        errs = torch.stack(errs, -1)                        # (N, 21, K)
+        K = len(combos)
+        # Last minimum: the first minimum of the reversed combo axis.
+        idx = K - 1 - errs.flip(-1).min(-1).indices
+        err_cols.append(errs.amin(-1))
+        fmts = torch.stack(
+            [torch.stack([fm[:, p, :, c[p]] for p in range(pc)], -1)
+             for c in combos], -2)                          # (N, 21, K, pc)
+        fmt_cols.append(torch.gather(
+            fmts, 2, idx[..., None, None].expand(N, 21, 1, pc))[:, :, 0])
+    return torch.stack(err_cols, -1), torch.stack(fmt_cols, -2).to(
+        torch.int32)
+
+
+def best_for_bitcount(comb_err, comb_fmt, quant_mode_table_np, bitcounts_np,
+                      pc: int = 1, mod_bits: int = 0):
+    """Per-mode best (quant, quant_mod, formats, error) for its bit budget
+    (reference: {one,two,three,four}_partitions_find_best_combination_for_
+    bitcount, :678, :780, :905, :1041).
+
+    comb_err: pc=1 (N, 21, 4), else (N, 21, S); comb_fmt: pc=1 (N, 21, 4),
+    else (N, 21, S, pc); bitcounts_np: (M,) bits available per mode;
+    mod_bits: the extra bits of the matched-format encoding (0, 2, 5, 8).
+    Returns dict of (N, M) tensors and formats (N, M, pc).
     """
     dev = comb_err.device
     qmt = quant_mode_table_np
     bits = np.clip(np.asarray(bitcounts_np, np.int64), 0, 127)
+    if pc == 1:
+        ics = list(range(1, 5))
+        ic_base = 1
+        S = 4
+        comb_fmt = comb_fmt[..., None]
+    else:
+        S = comb_err.shape[-1]
+        ics = list(range(pc, min(4 * pc, 9) + 1))
+        ic_base = pc
     cand = []
-    for ic in range(1, 5):
+    for ic in ics:
         ql = qmt[ic, bits]
         qlc = torch.from_numpy(np.clip(ql, 0, 20).astype(np.int64)).to(dev)
-        err_ic = comb_err[:, qlc, ic - 1]                     # (N, M)
+        err_ic = comb_err[:, qlc, ic - ic_base]                   # (N, M)
         valid = torch.from_numpy(ql >= QUANT_6).to(dev)
         cand.append(torch.where(valid, err_ic, ERROR_CALC_DEFAULT))
     cand = torch.stack(cand, -1)
     best_err, best_idx = cand.min(-1)              # first minimum
-    best_ic = torch.where(best_err >= ERROR_CALC_DEFAULT, 1, best_idx + 1)
+    ics_t = torch.tensor(ics, device=dev)
+    best_ic = torch.where(best_err >= ERROR_CALC_DEFAULT,
+                          1 if pc == 1 else 0, ics_t[best_idx])
     qmt_b = torch.from_numpy(qmt[:, bits].astype(np.int64)).to(dev)
-    qmt_m = qmt_b                                  # mod_bits == 0 for pc=1
+    qmt_m = torch.from_numpy(
+        qmt[:, np.clip(bits + mod_bits, 0, 127)].astype(np.int64)).to(dev)
     M = bits.shape[0]
     mi = torch.arange(M, device=dev)[None, :]
     ql = qmt_b[best_ic, mi]
     ql_mod = qmt_m[best_ic, mi]
     qlc = ql.clamp(QUANT_6, 20)
+    slot = (best_ic - ic_base).clamp(0, S - 1)
     N = comb_err.shape[0]
     ni = torch.arange(N, device=dev)[:, None]
-    fmts = comb_fmt[ni, qlc, (best_ic - 1).clamp(0, 3)]
-    fmts = torch.where(ql >= QUANT_6, fmts, cuq.FMT_LUMINANCE)
+    fmts = comb_fmt[ni, qlc, slot]                           # (N, M, pc)
+    fmts = torch.where((ql >= QUANT_6)[..., None], fmts, cuq.FMT_LUMINANCE)
     return {"error": best_err, "quant": ql.to(torch.int32),
-            "quant_mod": ql_mod.to(torch.int32), "formats": fmts}
+            "quant_mod": ql_mod.to(torch.int32),
+            "formats": fmts.to(torch.int32)}
 
 
 def select_candidates(total_errors, C: int):

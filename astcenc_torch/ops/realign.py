@@ -13,7 +13,7 @@ import torch
 
 def realign_decimated_grouped(wgrid, texels, ep0_t, ep1_t, channel_weight,
                               pn_rows, dec_f32, incidence, wvalid, color_of,
-                              ncolors: int):
+                              ncolors: int, plane_mask=None):
     """Realign a decimated weight grid, one plane.
 
     Args:
@@ -23,11 +23,16 @@ def realign_decimated_grouped(wgrid, texels, ep0_t, ep1_t, channel_weight,
       pn_rows: (N, 65, 2) int32 per-block prev/next unquant values.
       dec_f32: (N, T, W) per-block infill stencil; incidence: (N, T, W) 0/1.
       wvalid: (N, W) bool; color_of: (N, W) parity class per slot.
+      plane_mask: (N, 4) bool channels this plane does not carry (their
+        endpoint offset is taken as zero), or None.
 
     Returns (new_wgrid (N, W) int32, adjusted (N,) bool).
     """
     cw = [float(c) for c in channel_weight]
-    off_t = (ep1_t - ep0_t) * (1.0 / 64.0)
+    epd_t = ep1_t - ep0_t
+    if plane_mask is not None:
+        epd_t = torch.where(plane_mask[:, None, :], 0.0, epd_t)
+    off_t = epd_t * (1.0 / 64.0)
     base_t = ep0_t
     T = texels.shape[1]
 

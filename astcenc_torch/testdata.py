@@ -5,11 +5,11 @@ numpy from a seed: a smooth luminance field with per-channel tints, soft
 colour discs with hard edges, darker bars, and noise.
 
 Most of the noise is shared by all four channels, as luminance noise is in
-photographs, so every block's channels are clearly correlated. A block with
-nearly uncorrelated channels can have a float32 channel covariance that
-rounds to exactly zero, and such blocks are eligible for the 2-plane stage
-in the encoder's configurations with a correlation limit of 0, which the
-port does not run yet.
+photographs, so the channels of most blocks are correlated. With
+``independent_alpha`` the right half of the image gets an alpha channel of
+its own (a seeded sinusoid with noise, as a mask or a detail map packed in
+alpha would be): blocks there have decorrelated channels, which the
+encoder's 2-plane stage (1 partition, alpha on its own weight plane) wins.
 """
 
 from __future__ import annotations
@@ -17,8 +17,10 @@ from __future__ import annotations
 import numpy as np
 
 
-def synthetic_image(height: int, width: int, seed: int = 0) -> np.ndarray:
-    """(height, width, 4) uint8 RGBA image made from ``seed``."""
+def synthetic_image(height: int, width: int, seed: int = 0,
+                    independent_alpha: bool = False) -> np.ndarray:
+    """(height, width, 4) uint8 RGBA image made from ``seed``; with
+    ``independent_alpha`` the right half's alpha is independent of RGB."""
     rng = np.random.default_rng(seed)
     y, x = np.mgrid[0:height, 0:width].astype(np.float32)
     u = x / max(width - 1, 1)
@@ -50,4 +52,12 @@ def synthetic_image(height: int, width: int, seed: int = 0) -> np.ndarray:
     shared = rng.normal(0.0, 0.03, (height, width, 1)).astype(np.float32)
     own = rng.normal(0.0, 0.006, img.shape).astype(np.float32)
     img = img + shared + own
+    if independent_alpha:
+        fa = rng.uniform(3.0, 9.0, 2)
+        pa = rng.uniform(0, 2 * np.pi, 2)
+        alpha = (0.5 + 0.35 * np.sin(2 * np.pi * fa[0] * v + pa[0])
+                 * np.cos(2 * np.pi * fa[1] * u + pa[1])
+                 + rng.normal(0.0, 0.02, (height, width)))
+        half = x >= width // 2
+        img[..., 3] = np.where(half, alpha, img[..., 3])
     return np.clip(np.floor(img * 255.0 + 0.5), 0, 255).astype(np.uint8)

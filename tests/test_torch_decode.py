@@ -43,7 +43,7 @@ def test_decode_bit_exact(profile, dims):
     tcfg = tapi.config_init(tapi.Profile(int(profile)), *dims,
                             tapi.Quality.MEDIUM, 0)
     jctx = japi.context_alloc(jcfg)
-    tctx = tapi.context_alloc(tcfg)
+    tctx = tapi.context_alloc(tcfg, device="cpu")
     blocks = _blocks(jctx.bsd, sum(dims) + int(profile))
     for unorm8 in ((False, True) if dims[2] == 1 else (False,)):
         want = np.asarray(jdec.decompress_symbolic_batch(
@@ -60,7 +60,7 @@ def test_decode_image_matches():
     jcfg = japi.config_init(japi.Profile.LDR, 6, 6, 1, japi.Quality.MEDIUM, 0)
     tcfg = tapi.config_init(tapi.Profile.LDR, 6, 6, 1, tapi.Quality.MEDIUM, 0)
     jctx = japi.context_alloc(jcfg)
-    tctx = tapi.context_alloc(tcfg)
+    tctx = tapi.context_alloc(tcfg, device="cpu")
     blocks = _blocks(jctx.bsd, 3)[:64]
     for swz in ((0, 1, 2, 3), (2, 1, 0, 3), (0, 3, 6, 5), (4, 5, 1, 0)):
         for out_type in ("u8", "f16", "f32"):

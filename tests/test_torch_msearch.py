@@ -54,7 +54,7 @@ def _check_agreement(got, want):
 
 def _port_tables(bx, quality):
     cfg = tapi.config_init(tapi.Profile.LDR, bx, bx, 1, quality, 0)
-    return tapi.context_alloc(cfg).pass_tables(False)
+    return tapi.context_alloc(cfg, device="cpu").pass_tables("full")
 
 
 def _port_search(pt, inp, C):
@@ -63,6 +63,7 @@ def _port_search(pt, inp, C):
     out = msearch.mode_search_plain(pt, wei, wes, mcut, maxwq, comb_err,
                                     comb_fmt[..., 0].contiguous(), C)
     out = {k: v.cpu().numpy() for k, v in out.items()}
+    out["fmt"] = out["fmt"][..., 0]                    # (N, C, pc=1)
     # Pass tables number decimations within the pass; map back to the BSD's.
     out["dm"] = pt.dms_used_np[out["dm"]]
     return out

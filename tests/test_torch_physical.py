@@ -54,7 +54,7 @@ def stage1():
 
 def test_pack_bit_exact(stage1):
     jctx, scb, want = stage1
-    tctx = tapi.context_alloc(_configs(tapi))
+    tctx = tapi.context_alloc(_configs(tapi), device="cpu")
     got = tphys.symbolic_to_physical_batch(
         tctx.torch_decode_tables(),
         {k: torch.from_numpy(v) for k, v in scb.items()}).numpy()
@@ -65,7 +65,7 @@ def test_pack_bit_exact(stage1):
 
 def test_pack_roundtrip_decode(stage1):
     jctx, scb, want = stage1
-    tctx = tapi.context_alloc(_configs(tapi))
+    tctx = tapi.context_alloc(_configs(tapi), device="cpu")
     scb = dict(scb)
     scb.pop("const_u16")                         # pack without overrides
     got = tphys.symbolic_to_physical_batch(
@@ -78,3 +78,21 @@ def test_pack_roundtrip_decode(stage1):
                                   dec_j.view(np.uint32))
     ok = ~scb["block_type_error"]
     assert np.isfinite(dec_t[ok]).all()
+
+
+def test_pack_full_path_bit_exact():
+    """Symbolic blocks of JAX's full 6x6 -medium encode (2-plane blocks,
+    2 and 3 partitions, matched formats), shared with test_torch_main."""
+    from test_torch_main import config, jax_reference
+    ref = jax_reference()
+    s = ref["scb"]
+    real = ~s["const_u16"]
+    assert (s["plane2_component"][real] >= 0).any()
+    assert (s["partition_count"][real] == 2).any()
+    assert (s["partition_count"][real] == 3).any()
+    assert s["color_formats_matched"][real].any()
+    tctx = tapi.context_alloc(config(tapi), device="cpu")
+    got = tphys.symbolic_to_physical_batch(
+        tctx.torch_decode_tables(),
+        {k: torch.from_numpy(v) for k, v in s.items()}).numpy()
+    np.testing.assert_array_equal(got, ref["packed"])

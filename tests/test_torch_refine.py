@@ -62,11 +62,11 @@ def test_records_match_jax():
                              st, pot, counts, ql, ext)
     rx = {k: np.asarray(v) for k, v in rx.items()}
 
-    tctx = tapi.context_alloc(_slice_cfg(tapi))
+    tctx = tapi.context_alloc(_slice_cfg(tapi), device="cpu")
     tst = tc.make_block_state(torch.from_numpy(tex), 1)
     ext_t = torch.ones(N, dtype=torch.bool)
     ext_t[60:] = False
-    rk = ttrial.trial1_records(tst, tctx.pass_tables(False), tctx.config, 1,
+    rk = ttrial.trial1_records(tst, tctx.pass_tables("full"), tctx.config, 1,
                                False, torch.full((N,), 11, dtype=torch.int32),
                                ext_t)
     rk = {k: v.numpy() for k, v in rk.items()}

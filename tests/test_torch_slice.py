@@ -35,7 +35,7 @@ def _psnr(a, b):
 
 def test_slice_matches_jax():
     img = testdata.synthetic_image(SIZE, SIZE, 5)
-    tctx = tapi.context_alloc(_cfg(tapi))
+    tctx = tapi.context_alloc(_cfg(tapi), device="cpu")
     got = tapi.compress_image(tctx, img)
 
     jctx = japi.context_alloc(_cfg(japi))
@@ -58,13 +58,15 @@ def test_slice_matches_jax():
 
 
 def test_unported_stages_refused():
-    tctx = tapi.context_alloc(tapi.config_init(
-        tapi.Profile.LDR, 6, 6, 1, tapi.Quality.MEDIUM, 0))
-    with pytest.raises(NotImplementedError):
-        tapi.compress_image(tctx, testdata.synthetic_image(12, 12, 1))
-    cfg = _cfg(tapi)
-    cfg.tune_2plane_early_out_limit_correlation = 0.9
-    tctx = tapi.context_alloc(cfg)
-    img = testdata.synthetic_image(24, 24, 2)
-    with pytest.raises(NotImplementedError):
-        tapi.compress_image(tctx, img)
+    """What the encoder does not do yet raises: HDR profiles, 3D blocks and
+    per-block alpha weighting."""
+    img = testdata.synthetic_image(12, 12, 1)
+    for profile, dims, flags in (
+            (tapi.Profile.HDR, (6, 6, 1), 0),
+            (tapi.Profile.HDR_RGB_LDR_A, (6, 6, 1), 0),
+            (tapi.Profile.LDR, (4, 4, 4), 0),
+            (tapi.Profile.LDR, (6, 6, 1), tapi.Flags.USE_ALPHA_WEIGHT)):
+        tctx = tapi.context_alloc(tapi.config_init(
+            profile, *dims, tapi.Quality.MEDIUM, flags), device="cpu")
+        with pytest.raises(NotImplementedError):
+            tapi.compress_image(tctx, img)
