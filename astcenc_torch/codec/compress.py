@@ -13,7 +13,9 @@ eligible) blocks with ``nonzero``, runs the stage on them and scatters the
 result back, as the reference's per-block early exits skip the rest
 (astcenc_compress_symbolic.cpp:1283-1456). Stage 2a tries the four plane-2
 components in one folded batch; stage 2b ranks partitionings and tries the
-best few of each partition count 2..limit.
+best few of each partition count 2..limit. In the HDR profiles the image
+loads as LNS codes, the error threshold is 0 (no block leaves after stage
+1) and constant blocks become FP16 void-extent blocks.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from .. import config as host_config
+from ..ops import softfloat as sf
 from . import partition_search, physical, trial
 
 TUNE_MIN_SEARCH_MODE0 = 0.85
@@ -73,8 +76,6 @@ def _lowest_correlation(texels, channel_weight):
 
 def check_supported(cfg) -> None:
     """Refuse what the port does not do yet."""
-    if int(cfg.profile) not in (int(Profile.LDR), int(Profile.LDR_SRGB)):
-        raise NotImplementedError("HDR profiles are not ported yet")
     for flag in (Flags.USE_ALPHA_WEIGHT, Flags.MAP_RGBM):
         if cfg.flags & flag:
             raise NotImplementedError(f"{flag.name} is not ported yet")
@@ -120,8 +121,18 @@ def stage1_1plane(ctx, texels, use_kernels: bool = True):
     N, T, _ = texels.shape
     st = make_block_state(texels, profile)
     is_const = (st["data_min"] == st["data_max"]).all(1)
-    const_color = torch.floor(torch.clamp(texels[:, 0] / 65535.0, 0.0, 1.0)
-                              * 65535.0 + 0.5).to(torch.int32)
+    tex0 = texels[:, 0]
+    if profile >= int(Profile.HDR_RGB_LDR_A):
+        # FP16 constant colour (reference :1224-1231): LNS lanes through
+        # fp16, the UNORM16 alpha of profile 2 as a value in [0, 1].
+        lns = torch.tensor([True, True, True, profile == int(Profile.HDR)],
+                           device=dev)
+        const_color = torch.where(
+            lns, sf.lns_to_sf16(tex0.to(torch.int32)),
+            sf.float_to_float16(tex0 / 65535.0))
+    else:
+        const_color = torch.floor(torch.clamp(tex0 / 65535.0, 0.0, 1.0)
+                                  * 65535.0 + 0.5).to(torch.int32)
 
     cw = trial.effective_cw(cfg)
     ews = float(sum(cw)) * T
@@ -275,14 +286,17 @@ def stage2b_one_pc(ctx, st, scb, quant_limit, best_prev, pc: int,
     return scb, best_this
 
 
-def finalize_pack(dt, et, scb, aux):
+def finalize_pack(dt, et, scb, aux, profile: int):
     """Fallback/constant-block selection + physical pack
-    (compress.py:622-646), LDR profiles."""
+    (compress.py:622-646): constant blocks are UNORM16 void-extent blocks
+    in the LDR profiles and FP16 ones in the HDR profiles; blocks no trial
+    encoded become UNORM16 void-extent blocks."""
     is_const = aux["is_const"]
     scb = dict(scb)
     fallback = scb["block_type_error"] & ~is_const
-    scb["const_u16"] = is_const | fallback
-    scb["const_f16"] = torch.zeros_like(is_const)
+    hdr = profile >= int(Profile.HDR_RGB_LDR_A)
+    scb["const_u16"] = fallback if hdr else is_const | fallback
+    scb["const_f16"] = is_const if hdr else torch.zeros_like(is_const)
     scb["constant_color"] = aux["const_color"]
     err_lane = scb["block_type_error"]
     scb["block_mode"] = torch.where(err_lane, int(et.m1_mode_index[0]),
@@ -332,7 +346,7 @@ def compress_blocks(ctx, texels, use_kernels: bool = True):
     (N, 16) uint8 blocks."""
     scb, aux = compress_symbolic(ctx, texels, use_kernels=use_kernels)
     return finalize_pack(ctx.torch_decode_tables(), ctx.encoder_tables(),
-                         scb, aux)
+                         scb, aux, int(ctx.config.profile))
 
 
 def blockify(data: np.ndarray, block_dims) -> np.ndarray:
@@ -378,8 +392,17 @@ def image_to_blocks(ctx, image, swizzle=(0, 1, 2, 3)) -> np.ndarray:
             pad[...] = 255 if image.dtype == np.uint8 else 1.0
         image = np.concatenate([image, pad], axis=-1)
     image = _apply_load_swizzle(image, swizzle)
+    profile = int(ctx.config.profile)
     if image.dtype == np.uint8:
         data = image.astype(np.float32) * (65535.0 / 255.0)
+    elif profile >= int(Profile.HDR_RGB_LDR_A):
+        # HDR profiles load RGB, and alpha in profile 3, as LNS codes; the
+        # alpha of profile 2 stays UNORM16 (compress.py:1034-1043,
+        # reference astcenc_image.cpp:192-219).
+        f = image.astype(np.float32)
+        data = sf.float_to_lns(torch.from_numpy(f)).numpy()
+        if profile == int(Profile.HDR_RGB_LDR_A):
+            data[..., 3] = _encode_unorm_sanitized(f[..., 3])
     else:
         data = _encode_unorm_sanitized(image.astype(np.float32))
     return blockify(data.astype(np.float32), ctx.block_dims)

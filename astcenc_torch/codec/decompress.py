@@ -1,9 +1,10 @@
-"""Batched physical-block decoding, LDR profiles.
+"""Batched physical-block decoding, LDR and HDR profiles.
 
 Port of ``astcenc_tpu/codec/decompress.py`` (decompress_symbolic_batch,
 :79-295): every block of an (N, 16)-byte batch flows through the same
-gather/ALU pipeline, and invalid, constant-colour (void-extent) and error
-blocks resolve by masks at the end. Bit-exact against the JAX decoder.
+gather/ALU pipeline, and invalid, constant-colour (void-extent, UNORM16 or
+FP16) and error blocks resolve by masks at the end. HDR lanes decode from
+LNS codes through fp16. Bit-exact against the JAX decoder.
 """
 
 from __future__ import annotations
@@ -91,6 +92,45 @@ def block_types(t, pcb: torch.Tensor):
     return const, pc, planes
 
 
+def _formats(bp, wb, pc):
+    """Endpoint format of each partition (N, 4), 0 past the partition
+    count, from the header bits bp, weight bits wb and partition count
+    pc; with the matched-format flag and the position and size of the
+    extra format bits below the weights."""
+    N = bp.shape[0]
+    ehs = torch.where(pc > 1, 3 * pc - 4, 0)
+    below = 128 - wb - ehs
+    encoded_type = _read_static(bp, 23, 6) | (_read_dyn(bp, below, 8, ehs)
+                                             << 6)
+    baseclass = encoded_type & 0x3
+    matched = (baseclass == 0) & (pc > 1)
+    lanes = torch.arange(4, dtype=torch.int32, device=bp.device)[None, :]
+    fmt_matched = ((encoded_type >> 2) & 0xF)[:, None].expand(N, 4)
+    bclass = torch.clamp(baseclass - 1, min=0)
+    fmt_un = ((((encoded_type[:, None] >> (2 + lanes)) & 1)
+               + bclass[:, None]) << 2)
+    fmt_un = fmt_un | ((encoded_type[:, None]
+                        >> (2 + pc[:, None] + 2 * lanes)) & 3)
+    fmt_multi = torch.where(matched[:, None], fmt_matched, fmt_un)
+    fmt_single = _read_static(bp, 13, 4)[:, None].expand(N, 4)
+    fmt = torch.where((pc == 1)[:, None], fmt_single, fmt_multi)
+    return torch.where(lanes < pc[:, None], fmt, 0), matched, below, ehs
+
+
+def endpoint_formats(t, pcb: torch.Tensor) -> torch.Tensor:
+    """Endpoint format of each partition of each physical block, (N, 4)
+    int32, -1 past the partition count and for constant blocks."""
+    bp = _bitplane(pcb)
+    block_mode = _read_static(bp, 0, 11)
+    const = (block_mode & 0x1FF) == 0x1FC
+    wb = _lookup(t.bm_weight_bits, _lookup(t.block_mode_packed_index,
+                                           block_mode))
+    pc = _read_static(bp, 11, 2) + 1
+    fmt, _, _, _ = _formats(bp, wb, pc)
+    lanes = torch.arange(4, device=pcb.device)[None, :]
+    return torch.where(const[:, None] | (lanes >= pc[:, None]), -1, fmt)
+
+
 def decompress_symbolic_batch(t, pcb: torch.Tensor, profile: int,
                               decode_unorm8: bool) -> torch.Tensor:
     """Decode a batch of physical ASTC blocks to texel colours.
@@ -98,14 +138,12 @@ def decompress_symbolic_batch(t, pcb: torch.Tensor, profile: int,
     Args:
       t: decode tables as device tensors (``_host.decode_tables_to_torch``).
       pcb: (N, 16) uint8 physical blocks.
-      profile: PRF_LDR or PRF_LDR_SRGB.
+      profile: PRF_LDR_SRGB, PRF_LDR, PRF_HDR_RGB_LDR_A or PRF_HDR.
       decode_unorm8: round the decode through unorm8.
 
     Returns (N, T, 4) float32 texel colours (NaN error colour for invalid
     blocks).
     """
-    if profile not in (cuq.PRF_LDR, cuq.PRF_LDR_SRGB):
-        raise NotImplementedError("HDR profiles are not ported yet")
     dev = pcb.device
     N = pcb.shape[0]
     T = t.texel_count
@@ -187,26 +225,8 @@ def decompress_symbolic_batch(t, pcb: torch.Tensor, profile: int,
     wt2 = infill(p2)
 
     # ---- Colour endpoint mode decode --------------------------------------
-    ehs = torch.where(pc > 1, 3 * pc - 4, 0)
-    below = 128 - wb - ehs
-    et_low = _read_static(bp, 23, 6)
-    et_high = _read_dyn(bp, below, 8, ehs)
-    encoded_type = et_low | (et_high << 6)
-    baseclass = encoded_type & 0x3
-    matched = (baseclass == 0) & (pc > 1)
-
+    fmt, matched, below, ehs = _formats(bp, wb, pc)
     lanes = torch.arange(4, dtype=i32, device=dev)[None, :]
-    fmt_matched = ((encoded_type >> 2) & 0xF)[:, None].expand(N, 4)
-    bclass = torch.clamp(baseclass - 1, min=0)
-    fmt_un = ((((encoded_type[:, None] >> (2 + lanes)) & 1)
-               + bclass[:, None]) << 2)
-    fmt_un = fmt_un | ((encoded_type[:, None]
-                        >> (2 + pc[:, None] + 2 * lanes)) & 3)
-    fmt_multi = torch.where(matched[:, None], fmt_matched, fmt_un)
-    fmt_single = _read_static(bp, 13, 4)[:, None].expand(N, 4)
-    fmt = torch.where((pc == 1)[:, None], fmt_single, fmt_multi)
-    fmt = torch.where(lanes < pc[:, None], fmt, 0)
-
     below_final = torch.where(matched, below + ehs, below)
     ehs_final = torch.where(matched, 0, ehs)
     icount = torch.where(lanes < pc[:, None], ((fmt >> 2) + 1) * 2, 0).sum(
@@ -261,7 +281,8 @@ def decompress_symbolic_batch(t, pcb: torch.Tensor, profile: int,
                                 ).reshape(N, 4, 8)
 
     # ---- Endpoint unpack + texel assembly ----------------------------------
-    ep0, ep1 = cuq.unpack_color_endpoints(profile, fmt, color_values)
+    ep0, ep1, rgb_hdr, alpha_hdr = cuq.unpack_color_endpoints(
+        profile, fmt, color_values)
     pot = _i64(t.partition_of_texel_cat[_i64(prow)])           # (N, T)
     ep0_t = torch.gather(ep0, 1, pot[:, :, None].expand(N, T, 4))
     ep1_t = torch.gather(ep1, 1, pot[:, :, None].expand(N, T, 4))
@@ -272,13 +293,21 @@ def decompress_symbolic_batch(t, pcb: torch.Tensor, profile: int,
     u8_mask = decode_unorm8 or profile == cuq.PRF_LDR_SRGB
     if u8_mask:
         color = (color >> 8) * 257
-    out = sf.float16_to_float(sf.unorm16_to_sf16(color))
+    f16 = sf.unorm16_to_sf16(color)
+    if profile >= cuq.PRF_HDR_RGB_LDR_A:
+        # LNS lanes: the RGB of HDR formats, and alpha where it is HDR.
+        lns = torch.stack([rgb_hdr, rgb_hdr, rgb_hdr, alpha_hdr], -1)
+        lns_t = torch.gather(lns, 1, pot[:, :, None].expand(N, T, 4))
+        f16 = torch.where(lns_t, sf.lns_to_sf16(color), f16)
+    out = sf.float16_to_float(f16)
 
     # ---- Constant colour resolution ----------------------------------------
     ccol_u8 = (ccol >> 8) * 257 if u8_mask else ccol
     const_u16_out = sf.float16_to_float(sf.unorm16_to_sf16(ccol_u8))
     nan = error_nan(dev)
-    const_out = torch.where(const_f16[:, None], nan, const_u16_out)
+    const_f16_out = (sf.float16_to_float(ccol)
+                     if profile >= cuq.PRF_HDR_RGB_LDR_A else nan)
+    const_out = torch.where(const_f16[:, None], const_f16_out, const_u16_out)
     err = torch.where(is_const, const_err, bad)
     out = torch.where(is_const[:, None, None], const_out[:, None, :], out)
     return torch.where(err[:, None, None], nan, out)

@@ -6,7 +6,10 @@ astcenc_compress_symbolic.cpp:353-1037): per-mode search, candidate
 refinement and the reference's sequential record selection, as batched
 tensor ops. The mode search goes through kernel K1 (``ops/msearch.py``),
 the refinement rounds through K2 (1 plane, 1-4 partitions) and K3
-(2 planes) (``ops/refine.py``) on the card.
+(2 planes) (``ops/refine.py``) on the card. The HDR profiles refit and
+pack in PyTorch between rounds and run each round through K5 (1 plane) or
+K6 and K7 (2 planes), as the JAX package does (trial.py:624-659,
+:1192-1226).
 """
 
 from __future__ import annotations
@@ -19,14 +22,18 @@ import torch
 
 from ..tables import quant
 from ..ops import angular as ang
-from ..ops import color_pack as cpack
+from ..ops import color_pack_hdr as cph
+from ..ops import color_unquant as cuq
 from ..ops import formats as fmts
+from ..ops import gather
 from ..ops import ideal as ideal_ops
 from ..ops import msearch as msearch_ops
+from ..ops import recompute as recompute_ops
 from ..ops import refine as refine_ops
 
 ERROR_CALC_DEFAULT = fmts.ERROR_CALC_DEFAULT
 QUANT_32 = 11
+HDR_RGB_LDR_A = cuq.PRF_HDR_RGB_LDR_A
 
 # Copied from astcenc_tpu/codec/trial.py:71-76 (the quant levels live
 # beside their one user, ops/msearch.py).
@@ -208,7 +215,7 @@ def pass_tables(et: EncoderTables, kind: str, pc: int, device):
         if rec[5]:
             levels_used[rec[1]] |= 1 << rec[2]
     sin_t, cos_t = ang.sincos_tables()
-    lo, hi = cpack.quant_tables_np()
+    lo, hi = gather.quant_tables_np()
     pt.k = types.SimpleNamespace(
         tap_w=t(tap_w), tap_i=t(tap_i), wt_t=t(wt_t), wt_i=t(wt_i),
         wt_n=t(wt_n), wcount=t(wcount, torch.int32),
@@ -281,6 +288,128 @@ def _w64(w):
     return out
 
 
+def _color_error_tables(eci, ep0, ep1, counts, cw, profile: int):
+    if profile >= HDR_RGB_LDR_A:
+        return fmts.color_error_tables_hdr(eci, ep0, ep1, counts, cw,
+                                           encode_hdr_alpha=profile == 3)
+    return fmts.color_error_tables_ldr(eci, ep0, ep1, counts, cw)
+
+
+def _hdr_rounds_1plane(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
+                       pot, ep0, ep1, C: int, R: int, u8_mask: bool,
+                       cw: tuple, profile: int, use_kernels: bool):
+    """The R rounds of a 1-plane HDR trial (JAX trial.py:624-659): one
+    bootstrap round (K5 with no realign) for the first infill, then per
+    round the least-squares refit with the RGBO vector, the pack of both
+    arms, the decode and one K5 round. Arguments and outputs are those of
+    ``refine.trial1_refine``."""
+    NC, W = wgrid0.shape
+    pc = fmt_req.shape[1]
+    dev = texels.device
+    tex = texels.repeat_interleave(C, 0)
+    pmask = ideal_ops.partition_onehot(pot)[..., :pc].repeat_interleave(C, 0)
+    counts = pmask.sum(1)
+    e0 = ep0.repeat_interleave(C, 0)
+    e1 = ep1.repeat_interleave(C, 0)
+    big = torch.tensor(refine_ops._BIG, device=dev)
+
+    def rnd(grid, alive, d0, d1, ncolors):
+        return refine_ops.refine_round_1plane(
+            pt, grid, dm, wq, alive, d0, d1, texels, pot, C, ncolors,
+            u8_mask, cw, use_kernel=use_kernels)
+
+    zero = torch.zeros((NC, 4, 4), dtype=torch.int32, device=dev)
+    undec = rnd(wgrid0, alive, zero, zero, 0)["undec"]
+    wgrid = wgrid0
+    out = {k: [] for k in ("fmt", "vals", "useq", "match", "wpost",
+                           "err_post")}
+    for r in range(R):
+        rc = recompute_ops.recompute_ideal_colors_1plane(
+            tex, pmask, counts, undec, cw, e0, e1, is_hdr=True)
+        e0, e1 = rc["ep0"], rc["ep1"]
+
+        def pack(q):
+            f, v = cph.pack_color_endpoints(
+                profile, *(rc[k].reshape(NC * pc, 4)
+                           for k in ("ep0", "ep1", "rgbs", "rgbo")),
+                fmt_req.reshape(NC * pc), q.repeat_interleave(pc),
+                use_kernel=use_kernels)
+            return f.reshape(NC, pc), v.reshape(NC, pc, 8)
+
+        fmt4, vals4, use_q, matched = refine_ops.pack_partitions(pack, cq,
+                                                                cqm, pc)
+        d0, d1, _, _ = cuq.unpack_color_endpoints(profile, fmt4, vals4)
+        res = rnd(wgrid, alive, d0.contiguous(), d1.contiguous(),
+                  pt.ncolors)
+        if r == 0:
+            err_pre = torch.where(alive, res["err_pre"], big)
+        wgrid = torch.where(alive[:, None], res["grid"], wgrid)
+        out["err_post"].append(torch.where(alive, res["err_post"], big))
+        alive = alive & res["adjusted"]
+        undec = res["undec"]
+        for k, v in (("fmt", fmt4), ("vals", vals4), ("useq", use_q),
+                     ("match", matched), ("wpost", wgrid)):
+            out[k].append(v)
+    res = {k: torch.stack(v) for k, v in out.items()}
+    res["err_pre"] = err_pre
+    return res
+
+
+def _hdr_rounds_2plane(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
+                       texels, data_mean, ep0, ep1, C: int, R: int,
+                       u8_mask: bool, cw: tuple, profile: int,
+                       use_kernels: bool):
+    """The R rounds of a 2-plane HDR trial (JAX trial.py:1192-1226): one
+    K7 launch for both first infills, then per round the 2-plane refit
+    with the RGBO vector, the pack, the decode and one K6 round. Arguments
+    and outputs are those of ``refine.trial2_refine``."""
+    NC, W = wg1_0.shape
+    N = ep0.shape[0]
+    dev = texels.device
+    rows = torch.arange(N, device=dev) % texels.shape[0]
+    tex = texels[rows].repeat_interleave(C, 0)
+    mean = data_mean[rows].repeat_interleave(C, 0)
+    p2c_f = p2c.repeat_interleave(C, 0)
+    e0 = ep0.repeat_interleave(C, 0)
+    e1 = ep1.repeat_interleave(C, 0)
+    big = torch.tensor(refine_ops._BIG, device=dev)
+
+    def rnd(g1, g2, alive, d0, d1, ncolors):
+        return refine_ops.refine_round_2plane(
+            pt, g1, g2, dm, wq, alive, p2c, d0, d1, texels, C, ncolors,
+            u8_mask, cw, use_kernel=use_kernels)
+
+    zero = torch.zeros((NC, 4), dtype=torch.int32, device=dev)
+    boot = rnd(wg1_0, wg2_0, alive, zero, zero, 0)
+    u1, u2 = boot["undec1"], boot["undec2"]
+    wg1, wg2 = wg1_0, wg2_0
+    out = {k: [] for k in ("fmt", "vals", "w1post", "w2post", "err_post")}
+    for r in range(R):
+        rc = recompute_ops.recompute_ideal_colors_2planes(
+            tex, u1, u2, p2c_f, cw, mean, e0, e1, is_hdr=True)
+        e0, e1 = rc["ep0"], rc["ep1"]
+        fmt, vals = cph.pack_color_endpoints(
+            profile, e0, e1, rc["rgbs"], rc["rgbo"], fmt_req, cq,
+            use_kernel=use_kernels)
+        d0, d1, _, _ = cuq.unpack_color_endpoints(profile, fmt, vals)
+        res = rnd(wg1, wg2, alive, d0.contiguous(), d1.contiguous(),
+                  pt.ncolors)
+        if r == 0:
+            err_pre = torch.where(alive, res["err_pre"], big)
+        a = alive[:, None]
+        wg1 = torch.where(a, res["grid1"], wg1)
+        wg2 = torch.where(a, res["grid2"], wg2)
+        out["err_post"].append(torch.where(alive, res["err_post"], big))
+        alive = alive & res["adjusted"]
+        u1, u2 = res["undec1"], res["undec2"]
+        for k, v in (("fmt", fmt), ("vals", vals), ("w1post", wg1),
+                     ("w2post", wg2)):
+            out[k].append(v)
+    res = {k: torch.stack(v) for k, v in out.items()}
+    res["err_pre"] = err_pre
+    return res
+
+
 def trial1_records(st, pt, cfg, profile: int, u8_mask: bool, quant_limit,
                    ext_valid, pot=None, counts=None, use_kernels: bool = True):
     """Per-mode search + candidate refinement of a 1-plane trial over one
@@ -316,7 +445,7 @@ def trial1_records(st, pt, cfg, profile: int, u8_mask: bool, quant_limit,
 
     eci = fmts.encoding_choice_errors(texels, pmask, ep0, ep1, cw,
                                       st["is_luminance"], st["default_alpha"])
-    be, fm = fmts.color_error_tables_ldr(eci, ep0, ep1, counts, cw)
+    be, fm = _color_error_tables(eci, ep0, ep1, counts, cw, profile)
     if pc == 1:
         comb_err, comb_fmt = be[:, 0], fm[:, 0]
     else:
@@ -337,12 +466,14 @@ def trial1_records(st, pt, cfg, profile: int, u8_mask: bool, quant_limit,
     def flat(k):
         return ms[k].reshape(NC).contiguous()
 
-    rf = refine_ops.trial1_refine(
-        pt, wgrid0, flat("dm"), flat("wq"), valid_f, flat("cq"), flat("cqm"),
-        ms["fmt"].reshape(NC, pc).contiguous(), texels.contiguous(),
-        pot.to(torch.int32).contiguous(), ep0.contiguous(),
-        ep1.contiguous(), C, R, u8_mask, cw, profile,
-        use_kernel=use_kernels)
+    args = (pt, wgrid0, flat("dm"), flat("wq"), valid_f, flat("cq"),
+            flat("cqm"), ms["fmt"].reshape(NC, pc).contiguous(),
+            texels.contiguous(), pot.to(torch.int32).contiguous(),
+            ep0.contiguous(), ep1.contiguous(), C, R, u8_mask, cw, profile)
+    if profile >= HDR_RGB_LDR_A:
+        rf = _hdr_rounds_1plane(*args, use_kernels)
+    else:
+        rf = refine_ops.trial1_refine(*args, use_kernel=use_kernels)
 
     def rec(name):
         return _records(rf[name][0], rf[name], N, C)
@@ -465,7 +596,7 @@ def trial2_records(st, pt, cfg, profile: int, u8_mask: bool, quant_limit,
     eci = fmts.encoding_choice_errors(tex4, pmask4, ep0m, ep1m, cw,
                                       st["is_luminance"].repeat(4),
                                       st["default_alpha"])
-    be, fm = fmts.color_error_tables_ldr(eci, ep0m, ep1m, counts4, cw)
+    be, fm = _color_error_tables(eci, ep0m, ep1m, counts4, cw, profile)
 
     M = pt.quant_m_np.shape[0]
     C = max(1, min(cfg.tune_candidate_limit, M))
@@ -485,12 +616,15 @@ def trial2_records(st, pt, cfg, profile: int, u8_mask: bool, quant_limit,
     def flat(k):
         return ms[k].reshape(NC).contiguous()
 
-    rf = refine_ops.trial2_refine(
-        pt, wg1, wg2, flat("dm"), flat("wq"), valid_f, flat("cq"),
-        ms["fmt"][..., 0].reshape(NC).contiguous(), p2c,
-        texels.contiguous(), st["data_mean"].contiguous(),
-        ep0m[:, 0].contiguous(), ep1m[:, 0].contiguous(), C, R, u8_mask,
-        cw, profile, use_kernel=use_kernels)
+    args = (pt, wg1, wg2, flat("dm"), flat("wq"), valid_f, flat("cq"),
+            ms["fmt"][..., 0].reshape(NC).contiguous(), p2c,
+            texels.contiguous(), st["data_mean"].contiguous(),
+            ep0m[:, 0].contiguous(), ep1m[:, 0].contiguous(), C, R, u8_mask,
+            cw, profile)
+    if profile >= HDR_RGB_LDR_A:
+        rf = _hdr_rounds_2plane(*args, use_kernels)
+    else:
+        rf = refine_ops.trial2_refine(*args, use_kernel=use_kernels)
 
     K = R + 1
     fmt4 = torch.zeros((R, NC, 4), dtype=torch.int32, device=dev)

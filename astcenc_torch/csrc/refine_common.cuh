@@ -180,15 +180,17 @@ __device__ void quantize_rgb(const Quant& q, const float* c0, const float* c1,
   }
 }
 
+// The four channels sum pairwise, as ops/color_pack.py and the JAX
+// package's jitted sum do: candidates can tie to the last bit.
 __device__ float encoding_error(const float* c0, const float* c1,
                                 const int* u0, const int* u1) {
-  float acc = 0.f;
+  float t[4];
   for (int i = 0; i < 4; ++i) {
     const float e0 = c0[i] - (float)u0[i];
     const float e1 = c1[i] - (float)u1[i];
-    acc += e0 * e0 + e1 * e1;
+    t[i] = e0 * e0 + e1 * e1;
   }
-  return acc;
+  return (t[0] + t[1]) + (t[2] + t[3]);
 }
 
 struct Trials {

@@ -78,8 +78,10 @@ def build_key(name: str) -> str:
     return h.hexdigest()[:16]
 
 
-#: The kernel sources: K1 msearch, K2 refine, K3 refine2, K4 psearch.
-KERNELS = ("msearch", "refine", "refine2", "psearch")
+#: The kernel sources: K1 msearch, K2 refine, K3 refine2, K4 psearch, K5
+#: refine_round, K6 and K7 refine_round2, K9 quant_lookup.
+KERNELS = ("msearch", "refine", "refine2", "psearch", "refine_round",
+           "refine_round2", "quant_lookup")
 
 
 def _lib_path(name: str) -> str:
@@ -118,7 +120,11 @@ def build(names=KERNELS) -> None:
 
 def load(name: str) -> ctypes.CDLL:
     """Build (unless built from the same sources and flags) and load
-    ``csrc/<name>.cu``."""
+    ``csrc/<name>.cu``; later calls return the loaded library at once
+    (the source hash is not taken again on every launch)."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     build((name,))
     with _lock:
         lib = _libs.get(name)

@@ -5,66 +5,46 @@ reference astcenc_color_quantize.cpp:1909-2147): every delta and
 blue-contract variant is tried on the whole batch with validity masks and
 the best valid one is kept per element, in the reference's trial order and
 with its error tie breaks. Colours are in the 0..255 domain; quantization
-uses the unquant -> uquant lo/hi tie-break tables.
+uses the unquant -> uquant lo/hi tie-break tables, looked up through
+``gather.quant_lookup`` (kernel K9 on the card).
 """
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
-from ..tables import ise, quant
+from ..tables import ise
 from . import color_unquant as cuq
+from . import gather
 
 _BIG = 1e30
 
 
-@functools.cache
-def quant_tables_np():
-    """(lo (17, 256), hi (17, 256)) int32 colour quant tables."""
-    lo = np.zeros((17, 256), np.int32)
-    hi = np.zeros((17, 256), np.int32)
-    for q in range(ise.QUANT_6, 21):
-        t = quant.color_quant_tables(q)
-        lo[q - ise.QUANT_6] = t["unquant_to_uquant_lo"]
-        hi[q - ise.QUANT_6] = t["unquant_to_uquant_hi"]
-    return lo, hi
-
-
-_dev_tables: dict = {}
-
-
-def quant_tables(device):
-    key = str(device)
-    if key not in _dev_tables:
-        _dev_tables[key] = tuple(torch.from_numpy(a).to(device)
-                                 for a in quant_tables_np())
-    return _dev_tables[key]
-
-
 class _Q:
-    """Per-element colour quant table row (qidx = quant level - QUANT_6)."""
+    """Per-row colour quant tables (qidx = quant level - QUANT_6), the
+    counterpart of the JAX package's ``QuantQ``: each call looks up all its
+    values, (B, ...) for the B rows, in one call of ``gather.quant_lookup``
+    (kernel K9 for CUDA tensors unless ``use_kernel`` is False)."""
 
-    def __init__(self, qidx):
-        self.idx = qidx.to(torch.int64)
-        self.lo, self.hi = quant_tables(qidx.device)
+    def __init__(self, qidx, use_kernel: bool = True):
+        self.idx = qidx.to(torch.int32)
+        self.use_kernel = use_kernel
 
-    def _row(self, v):
-        q = self.idx.reshape(self.idx.shape + (1,) * (v.dim() - 1))
-        return q, torch.clamp(v, 0, 255).to(torch.int64)
+    def lookup(self, v):
+        """(lo, hi) table values of v (B, ...) int."""
+        packed = gather.quant_lookup(self.idx, v.reshape(v.shape[0], -1),
+                                     self.use_kernel).reshape(v.shape)
+        return packed & 0xFF, packed >> 8
 
     def color(self, v):
         """quant_color: round ties up (reference :73-78)."""
-        q, vi = self._row(v)
-        return self.hi[q, vi]
+        return self.lookup(v)[1]
 
     def color_res(self, v, vf):
         """quant_color with the residual bias (reference :108-125)."""
-        q, vi = self._row(v)
-        use_hi = (vf - v.to(torch.float32)) >= -0.1
-        return torch.where(use_hi, self.hi[q, vi], self.lo[q, vi])
+        lo, hi = self.lookup(v)
+        return torch.where((vf - v.to(torch.float32)) >= -0.1, hi, lo)
 
 
 def _rtn(x):
@@ -81,33 +61,48 @@ def _set3(v, a):
     return torch.cat([v[..., :3], a[..., None]], -1)
 
 
+_NUDGE_LIMIT = 2049    # the step at which the JAX version gives up
+
+
 def _quantize_rgb(c0, c1, q: _Q):
     """quantize_rgb (reference :169-192): nudge c0 down and c1 up by an
-    accumulated 0.2 until the quantized RGB sums order; finished lanes
-    freeze. Bounded at 2048 steps like the JAX version."""
+    accumulated 0.2 until the quantized RGB sums order; the first step
+    that orders them wins. As in the JAX version, a lane still unordered
+    at step 2049 takes that step's c1 for both endpoints. The steps go in
+    passes of 4, 8, 16, then 32: each pass accumulates the nudges one by
+    one (the same float32 sums as a step-by-step loop) and quantizes them
+    in one lookup; LDR lanes rarely need more than the first pass, HDR
+    ones often need hundreds of steps."""
     def ev(a, b):
         return (q.color_res(torch.clamp(_rtn(a), min=0), a),
                 q.color_res(torch.clamp(_rtn(b), max=255), b))
 
     o0, o1 = ev(c0, c1)
     done = _sum3(o0) <= _sum3(o1)
-    it = 0
+    step, K = 0, 4                             # steps taken; this pass's
     while not bool(done.all()):
-        d = done[:, None]
-        c0 = torch.where(d, c0, c0 - np.float32(0.2))
-        c1 = torch.where(d, c1, c1 + np.float32(0.2))
-        a, b = ev(c0, c1)
-        ok = _sum3(a) <= _sum3(b)
-        newly = (ok & ~done)[:, None]
-        o0 = torch.where(newly, a, o0)
-        o1 = torch.where(newly, b, o1)
-        if it >= 2048:
-            forced = (~done & ~ok)[:, None]
-            o0 = torch.where(forced, b, o0)
-            o1 = torch.where(forced, b, o1)
-            done = done | True
-        done = done | ok
-        it += 1
+        a, b = [], []
+        for _ in range(K):
+            c0 = c0 - np.float32(0.2)
+            c1 = c1 + np.float32(0.2)
+            a.append(c0)
+            b.append(c1)
+        a, b = ev(torch.stack(a, 1), torch.stack(b, 1))   # (B, K, 4)
+        steps = step + torch.arange(1, K + 1, device=c0.device)
+        ok = (_sum3(a) <= _sum3(b)) & (steps <= _NUDGE_LIMIT)
+        first = ok.to(torch.int32).argmax(1)
+        take = ok.any(1) & ~done
+        # A lane unordered through step 2049 takes that step's c1 for both.
+        forced = ~ok.any(1) & ~done & (step + K >= _NUDGE_LIMIT)
+        pick = torch.where(forced, _NUDGE_LIMIT - step - 1, first)
+        ni = torch.arange(len(first), device=c0.device)
+        sa, sb = a[ni, pick.long()], b[ni, pick.long()]
+        o0 = torch.where(take[:, None], sa, torch.where(forced[:, None], sb,
+                                                        o0))
+        o1 = torch.where((take | forced)[:, None], sb, o1)
+        done = done | take | forced
+        step += K
+        K = min(2 * K, 32)
     return o0, o1
 
 
@@ -192,9 +187,12 @@ def _try_rgb_delta_blue_contract(c0in, c1in, q: _Q):
 
 
 def _encoding_error(c0f, c1f, u0, u1):
+    """Squared endpoint error, the four channels summed pairwise as the
+    JAX package's jitted sum is (candidates can tie to the last bit)."""
     e0 = c0f - u0.to(torch.float32)
     e1 = c1f - u1.to(torch.float32)
-    return (e0 * e0 + e1 * e1).sum(-1)
+    t = e0 * e0 + e1 * e1
+    return (t[..., 0] + t[..., 1]) + (t[..., 2] + t[..., 3])
 
 
 def _pack_rgb_or_rgba(c0, c1, q: _Q, with_alpha: bool):
@@ -326,14 +324,15 @@ def _pack_luminance_alpha(c0, c1, q: _Q):
     return fmt, torch.where(ok[:, None], dvals, vals)
 
 
-def pack_color_endpoints_ldr(ep0, ep1, rgbs, req_fmt, quant_level):
+def pack_color_endpoints_ldr(ep0, ep1, rgbs, req_fmt, quant_level,
+                             use_kernel: bool = True):
     """Batched LDR pack_color_endpoints (reference :1909-2147).
 
     ep0/ep1/rgbs: (B, 4) float32 in the 0..65535 domain; req_fmt (B,) int32
     requested format; quant_level (B,) absolute colour quant (>= QUANT_6).
     Returns (fmt (B,) int32, values (B, 8) int32 in 0..255).
     """
-    q = _Q(torch.clamp(quant_level - ise.QUANT_6, 0, 16))
+    q = _Q(torch.clamp(quant_level - ise.QUANT_6, 0, 16), use_kernel)
     c0 = torch.clamp(ep0, 0.0, 65535.0) / 257.0
     c1 = torch.clamp(ep1, 0.0, 65535.0) / 257.0
     B = ep0.shape[0]

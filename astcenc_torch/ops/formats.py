@@ -141,6 +141,88 @@ def color_error_tables_ldr(eci, ep0, ep1, counts, channel_weight):
     return be, torch.cat([fm_lo, fm_hi], -2)
 
 
+def color_error_tables_hdr(eci, ep0, ep1, counts, channel_weight,
+                           encode_hdr_alpha: bool):
+    """best_error/format per (n, p, quant 0..20, integer count 1..4), HDR
+    profiles (reference :379-559); formats 2, 7, 11 and 14 (15 with
+    encode_hdr_alpha) by integer count. Returns ((N, P, 21, 4) f32,
+    (N, P, 21, 4) i32)."""
+    dev = ep0.device
+    cw3, cw_a, ew_rgbsum = _cw_parts(channel_weight, dev)
+    psize = counts.to(torch.float32)
+    ul = 61440.0
+    ua = ul if encode_hdr_alpha else 65535.0
+    rgb = torch.arange(4, device=dev) < 3
+    e0h = torch.clamp(ep0 - torch.where(rgb, ul, ua), min=0.0)
+    e1h = torch.clamp(ep1 - torch.where(rgb, ul, ua), min=0.0)
+    e0l = torch.clamp(ep0, max=0.0)
+    e1l = torch.clamp(ep1, max=0.0)
+    sum_range = e0l * e0l + e1l * e1l + e0h * e0h + e1h * e1h
+    rgb_range_error = (sum_range[..., :3] * cw3).sum(-1) * 0.5 * psize
+    alpha_range_error = sum_range[..., 3] * cw_a * 0.5 * psize
+
+    # Statistics of the RGBO and RGB submode estimates (reference :382-512)
+    r1, g1, b1 = ep1[..., 0], ep1[..., 1], ep1[..., 2]
+    use_r = (r1 > g1) & (r1 > b1)
+    use_g = ~use_r & (g1 > b1)
+    af = torch.where(use_r, r1, torch.where(use_g, g1, b1))
+    cf = torch.where(use_r, r1 - ep0[..., 0],
+                     torch.where(use_g, g1 - ep0[..., 1], b1 - ep0[..., 2]))
+    bf = af - torch.clamp(ep1[..., :3].amin(-1), min=0.0)
+    df = (ep1[..., :3] - cf[..., None] - ep0[..., :3]).abs().amax(-1)
+    b_, c_, d_ = (torch.clamp(x, 0.0, 65536.0).to(torch.int32)
+                  for x in (bf, cf, df))
+
+    rgbo_mode = torch.full_like(b_, 5)
+    for m, ok in ((4, (b_ < 32768) & (c_ < 16384)),
+                  (3, (b_ < 8192) & (c_ < 16384)),
+                  (2, (b_ < 2048) & (c_ < 16384)),
+                  (1, (b_ < 2048) & (c_ < 1024)),
+                  (0, (b_ < 1024) & (c_ < 4096))):
+        rgbo_mode = torch.where(ok, m, rgbo_mode)
+    rgb_mode = torch.full_like(b_, 8)
+    for m, (bc, cc, dc) in enumerate(((16384, 8192, 8192),
+                                      (32768, 8192, 4096),
+                                      (4096, 8192, 4096), (8192, 8192, 2048),
+                                      (8192, 2048, 512), (2048, 8192, 1024),
+                                      (2048, 2048, 256), (1024, 2048, 512))):
+        rgb_mode = torch.where((b_ < bc) & (c_ < cc) & (d_ < dc), m, rgb_mode)
+    # Scale factors by mode (exact powers of 4): RGBO 4, 4, 16, 64, 256,
+    # 1024; RGB 64, 64, 16, 16, 4, 4, 1, 1 and 384 for mode 8.
+    rgbo_scale = torch.exp2(2.0 * torch.clamp(rgbo_mode, min=1))
+    rgb_scale = torch.where(rgb_mode == 8, 384.0,
+                            torch.exp2(2.0 * (3 - rgb_mode // 2)))
+    mode7mult = rgbo_scale * 0.0015
+    mode11mult = rgb_scale * 0.010
+    lumdif = (ep1[..., 0] + ep1[..., 1] + ep1[..., 2]) / 3.0 \
+        - (ep0[..., 0] + ep0[..., 1] + ep0[..., 2]) / 3.0
+    mode23mult = torch.where(lumdif < 960, 4.0,
+                             torch.where(lumdif < 3968, 16.0, 128.0)) * 0.0005
+
+    bq = torch.from_numpy(_BASELINE_QUANT_ERROR[8 - QUANT_6:]).to(dev)
+    base_q = bq * psize[..., None]                         # (N, P, 13)
+    rgb_q = ew_rgbsum * base_q * 2.0
+    rgba_q = rgb_q + cw_a * base_q * 2.0
+    rre = rgb_range_error[..., None]
+    adrop = eci["alpha_drop_error"][..., None]
+    be_hi = torch.stack([
+        rgb_q * mode23mult[..., None] + rre + adrop
+        + eci["luminance_error"][..., None],
+        rgb_q * mode7mult[..., None] + rre + adrop
+        + eci["rgb_luma_error"][..., None],
+        rgb_q * mode11mult[..., None] + rre + adrop,
+        rgba_q + rre + alpha_range_error[..., None]], -1)
+    pad = tuple(counts.shape) + (8, 4)
+    be = torch.cat([torch.full(pad, ERROR_CALC_DEFAULT, device=dev), be_hi],
+                   -2)
+    fm = torch.tensor([cuq.FMT_HDR_LUMINANCE_LARGE_RANGE,
+                       cuq.FMT_HDR_RGB_SCALE, cuq.FMT_HDR_RGB,
+                       cuq.FMT_HDR_RGBA if encode_hdr_alpha
+                       else cuq.FMT_HDR_RGB_LDR_ALPHA], dtype=torch.int32,
+                      device=dev).expand(tuple(counts.shape) + (21, 4))
+    return be, fm
+
+
 def combine_partitions(be, fm, pc: int):
     """Best combined (error, formats) per (quant, total integer count) for
     2-4 partitions (reference: {two,three,four}_partitions_find_best_

@@ -1,10 +1,11 @@
-"""Least-squares endpoint refit for fixed weights, LDR, 1 or 2 planes.
+"""Least-squares endpoint refit for fixed weights, 1 or 2 planes.
 
 Port of ``astcenc_tpu/ops/recompute.py::recompute_ideal_colors_1plane``
 (:14-149; reference astcenc_ideal_endpoints_and_weights.cpp:1146-1368)
 and ``recompute_ideal_colors_2planes`` (:150): per partition, the 2x2
 normal equations of each channel and of the RGB-scale line, as masked
-reductions over the texel axis.
+reductions over the texel axis; for the HDR profiles also the RGBO vector
+of FMT_HDR_RGB_SCALE (a structured 4x4 solve, :282).
 
 The texel sums run in the order of the kernels' warp reduction
 (``lane_sum``), so the plain versions and kernels K2/K3 fit bit-identical
@@ -48,7 +49,8 @@ def _sum3(v):
 
 
 def recompute_ideal_colors_1plane(texels, pmask, counts, undec_weights,
-                                  channel_weight, ep0_in, ep1_in):
+                                  channel_weight, ep0_in, ep1_in,
+                                  is_hdr: bool = False):
     """Refit endpoints per partition given per-texel weights.
 
     Args:
@@ -56,8 +58,9 @@ def recompute_ideal_colors_1plane(texels, pmask, counts, undec_weights,
       undec_weights: (N, T) infilled weights in [0, 1].
       channel_weight: static 4-tuple.
       ep0_in/ep1_in: (N, P, 4) previous endpoints, kept where a solve fails.
+      is_hdr: also compute the RGBO vector of FMT_HDR_RGB_SCALE.
 
-    Returns dict: ep0, ep1, rgbs (N, P, 4).
+    Returns dict: ep0, ep1, rgbs (N, P, 4), and rgbo (N, P, 4) if is_hdr.
     """
     dev = texels.device
     cw = torch.tensor(channel_weight, dtype=torch.float32, device=dev)
@@ -134,14 +137,63 @@ def recompute_ideal_colors_1plane(texels, pmask, counts, undec_weights,
     rgbs_out = torch.where(ls_ok[..., None], rgbs_fit, rgbs)
 
     as_ = all_same[..., None]
-    return {"ep0": torch.where(as_, ep0_same, ep0_fit),
-            "ep1": torch.where(as_, ep1_same, ep1_fit),
-            "rgbs": torch.where(as_, rgbs_same, rgbs_out)}
+    out = {"ep0": torch.where(as_, ep0_same, ep0_fit),
+           "ep1": torch.where(as_, ep1_same, ep1_fit),
+           "rgbs": torch.where(as_, rgbs_same, rgbs_out)}
+    if is_hdr:
+        out["rgbo"] = _rgbo(rgba_weight_sum, (_psum(pmask, idx) + 1e-17)[
+            ..., None] * cw, cvx, cvy, right_s * ls_weight, out["ep0"],
+            out["ep1"])
+    return out
+
+
+def _rgbo(rgba_ws, wws, cvx, cvy, psum, ep0, ep1):
+    """The RGBO vector of FMT_HDR_RGB_SCALE (reference :1099-1143, JAX
+    recompute.py:133-145, :263-277): the structured 4x4 solve, or where
+    it gives NaN the endpoints' midpoint and mean RGB difference."""
+    rgbq = torch.cat([(cvx + cvy)[..., :3], _sum3(cvy)[..., None]], -1)
+    rgbo = _compute_rgbo(rgba_ws, wws, rgbq, psum)
+    bad = torch.isnan((rgbo * rgbo).sum(-1))
+    avgdif = torch.clamp(_sum3(ep1 - ep0) / 3.0, min=0.0)
+    ep0b = (ep0 + ep1) * 0.5 - avgdif[..., None] * 0.5
+    fallback = torch.cat([ep0b[..., :3], avgdif[..., None]], -1)
+    return torch.where(bad[..., None], fallback, rgbo)
+
+
+def _compute_rgbo(rgba_ws, wws, rgbq_sum, psum):
+    """Structured 4x4 inverse of the HDR RGBO solve (reference
+    :1099-1143)."""
+    X, Y, Z = rgba_ws[..., 0], rgba_ws[..., 1], rgba_ws[..., 2]
+    P, Q, R = wws[..., 0], wws[..., 1], wws[..., 2]
+    S = psum
+    PP, QQ, RR = P * P, Q * Q, R * R
+    SZmRR = S * Z - RR
+    DT = SZmRR * Y - Z * QQ
+    YP = Y * P
+    QX = Q * X
+    YX = Y * X
+    mZYP = -Z * YP
+    mZQX = -Z * QX
+    mRYX = -R * YX
+    ZQP = Z * Q * P
+    RYP = R * YP
+    RQX = R * QX
+    rdet = 1.0 / (DT * X + mZYP * P)
+    mats = (
+        (DT, ZQP, RYP, mZYP),
+        (ZQP, SZmRR * X - Z * PP, RQX, mZQX),
+        (RYP, RQX, (S * Y - QQ) * X - Y * PP, mRYX),
+        (mZYP, mZQX, mRYX, Z * YX))
+    vect = rgbq_sum * rdet[..., None]
+    return torch.stack([
+        ((m[0] * vect[..., 0] + m[1] * vect[..., 1]) + m[2] * vect[..., 2])
+        + m[3] * vect[..., 3] for m in mats], -1)
 
 
 def recompute_ideal_colors_2planes(texels, undec_w1, undec_w2, p2c,
-                                   channel_weight, data_mean, ep0_in, ep1_in):
-    """Refit single-partition endpoints for two weight planes, LDR (port of
+                                   channel_weight, data_mean, ep0_in, ep1_in,
+                                   is_hdr: bool = False):
+    """Refit single-partition endpoints for two weight planes (port of
     ``recompute_ideal_colors_2planes``, astcenc_tpu/ops/recompute.py:150;
     reference :1369-1650). Texel sums run in kernel K3's order.
 
@@ -149,8 +201,9 @@ def recompute_ideal_colors_2planes(texels, undec_w1, undec_w2, p2c,
       texels: (N, T, 4); undec_w1/undec_w2: (N, T) infilled weights.
       p2c: (N,) plane-2 component; data_mean: (N, 4) block mean.
       ep0_in/ep1_in: (N, 4) previous endpoints, kept where a solve fails.
+      is_hdr: also compute the RGBO vector of FMT_HDR_RGB_SCALE.
 
-    Returns dict: ep0, ep1, rgbs (N, 4).
+    Returns dict: ep0, ep1, rgbs (N, 4), and rgbo (N, 4) if is_hdr.
     """
     dev = texels.device
     cw = torch.tensor(channel_weight, dtype=torch.float32, device=dev)
@@ -228,4 +281,10 @@ def recompute_ideal_colors_2planes(texels, undec_w1, undec_w2, p2c,
     take_fit2 = ~allsame2 & p2_mask & okf2
     ep0 = torch.where(take_same2, avg, torch.where(take_fit2, e0f2, ep0))
     ep1 = torch.where(take_same2, avg, torch.where(take_fit2, e1f2, ep1))
-    return {"ep0": ep0, "ep1": ep1, "rgbs": rgbs}
+    out = {"ep0": ep0, "ep1": ep1, "rgbs": rgbs}
+    if is_hdr:
+        www = lane_sum(color_idx, 1) + 1e-17
+        rsel = torch.where(p2_mask, r2[:, None], r1[:, None]) * cw
+        out["rgbo"] = _rgbo(rgba_weight_sum.expand(N, 4), www * cw, cvx, cvy,
+                            _sum3(rsel), ep0, ep1)
+    return out

@@ -1,5 +1,15 @@
 """Refinement rounds of a trial: kernels K2 (1 plane) and K3 (2 planes)
-and their plain versions.
+for the LDR profiles, K5 (1 plane), K6 and K7 (2 planes) for one round of
+the HDR profiles, and their plain versions.
+
+K5 replaces ``refine_pallas.py::_refine_kernel`` (:184, launched by
+``_refine_call`` :1368/:1381 from ``refine_round_1plane``); K6 and K7
+replace ``_refine2_kernel`` (:1090) and ``_refine2_boot_kernel`` (:1244),
+launched by ``_refine2_call`` (:1275/:1289) from ``refine_round_2plane``.
+They keep K2's and K3's shape (``csrc/refine_round.cu``,
+``csrc/refine_round2.cu``) and share their trial error and realign step
+(``csrc/refine_common.cuh``); the refit and the HDR pack run between the
+rounds in PyTorch (``codec/trial.py``).
 
 K2 replaces the TPU kernel
 ``astcenc_tpu/ops/refine_pallas.py::_trial1_full_kernel`` (:348, launched
@@ -43,20 +53,28 @@ from . import ideal as ideal_ops
 from . import realign as realign_ops
 from . import recompute as recompute_ops
 
-#: Launches of the CUDA kernels (the plain versions do not count).
+#: Launches of the CUDA kernels (the plain versions do not count): K2, K3,
+#: K5, K6 and K7.
 launches = 0
 launches2 = 0
+launches_round1 = 0
+launches_round2 = 0
+launches_boot2 = 0
 
 _BIG = 1e30
 
 
 def _color_err(texels, color, cw, u8_mask: bool):
+    """Summed trial error, in the kernels' order: channels in sequence per
+    texel, texels by ``lane_sum`` (csrc/refine_common.cuh::trial_error)."""
     if u8_mask:
         color = torch.floor(color / 256.0) * 257.0
     d = torch.clamp((texels - color).abs(), max=1e15)
-    cwt = torch.tensor(cw, dtype=torch.float32, device=texels.device)
-    err_t = torch.clamp((d * d * cwt).sum(-1), max=1e30)
-    return err_t.sum(-1)
+    dd = d * d
+    err_t = dd[..., 0] * float(cw[0])
+    for c in range(1, 4):
+        err_t = err_t + dd[..., c] * float(cw[c])
+    return recompute_ops.lane_sum(torch.clamp(err_t, max=1e30), -1)
 
 
 def _infill(Mint, wgrid):
@@ -97,10 +115,36 @@ def _lane_tables(pt, dm, wq):
 def _decode(profile, fmt, vals):
     """(B, P) formats and (B, P, 8) values -> float (B, P, 4) endpoints."""
     B, P = fmt.shape
-    e0, e1 = cuq.unpack_color_endpoints(profile, fmt.reshape(B * P),
-                                        vals.reshape(B * P, 8))
+    e0, e1, _, _ = cuq.unpack_color_endpoints(profile, fmt.reshape(B * P),
+                                              vals.reshape(B * P, 8))
     return (e0.to(torch.float32).reshape(B, P, 4),
             e1.to(torch.float32).reshape(B, P, 4))
+
+
+def pack_partitions(pack, cq, cqm, pc: int):
+    """The pack of a pc-partition lane (JAX trial.py:556-594): ``pack(q)``
+    packs every partition at colour quant q into (NC, pc) formats and
+    (NC, pc, 8) values. For pc >= 2 a second, matched-format pack at cqm
+    replaces the first where every partition kept one format and the
+    matched pack does too. Returns fmt (NC, 4), vals (NC, 4, 8), the quant
+    used (NC,) and matched (NC,) bool."""
+    fmt_p, vals_p = pack(cq)
+    NC = fmt_p.shape[0]
+    matched = torch.zeros((NC,), dtype=torch.bool, device=fmt_p.device)
+    use_q = cq
+    if pc >= 2:
+        all_same = (cq != cqm) & (fmt_p == fmt_p[:, :1]).all(1)
+        fmt_m, vals_m = pack(cqm.clamp(4, 20))
+        same_mod = (fmt_m == fmt_m[:, :1]).all(1)
+        matched = all_same & same_mod & (cqm >= 4)
+        fmt_p = torch.where(matched[:, None], fmt_m, fmt_p)
+        vals_p = torch.where(matched[:, None, None], vals_m, vals_p)
+        use_q = torch.where(matched, cqm, cq)
+    fmt4 = torch.zeros((NC, 4), dtype=torch.int32, device=fmt_p.device)
+    vals4 = torch.zeros((NC, 4, 8), dtype=torch.int32, device=fmt_p.device)
+    fmt4[:, :pc] = fmt_p
+    vals4[:, :pc] = vals_p
+    return fmt4, vals4, use_q.to(torch.int32), matched
 
 
 def trial1_refine_plain(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
@@ -135,34 +179,22 @@ def trial1_refine_plain(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
                            "err_post")}
     err_pre = None
 
-    def pack(e0, e1, rgbs, q):
-        f, v = cpack.pack_color_endpoints_ldr(
-            e0.reshape(NC * pc, 4), e1.reshape(NC * pc, 4),
-            rgbs.reshape(NC * pc, 4), fmt_req.reshape(NC * pc),
-            q.repeat_interleave(pc))
-        return f.reshape(NC, pc), v.reshape(NC, pc, 8)
-
     for r in range(R):
         undec = torch.einsum("ntw,nw->nt", Mf32, wgrid.to(torch.float32)) \
             / 64.0
         rc = recompute_ops.recompute_ideal_colors_1plane(
             tex, pmask, counts, undec, cw, e0, e1)
         e0, e1 = rc["ep0"], rc["ep1"]
-        fmt_p, vals_p = pack(e0, e1, rc["rgbs"], cq)
-        matched = torch.zeros((NC,), dtype=torch.bool, device=dev)
-        use_q = cq
-        if pc >= 2:
-            all_same = (cq != cqm) & (fmt_p == fmt_p[:, :1]).all(1)
-            fmt_m, vals_m = pack(e0, e1, rc["rgbs"], cqm.clamp(4, 20))
-            same_mod = (fmt_m == fmt_m[:, :1]).all(1)
-            matched = all_same & same_mod & (cqm >= 4)
-            fmt_p = torch.where(matched[:, None], fmt_m, fmt_p)
-            vals_p = torch.where(matched[:, None, None], vals_m, vals_p)
-            use_q = torch.where(matched, cqm, cq)
-        fmt4 = torch.zeros((NC, 4), dtype=i32, device=dev)
-        vals4 = torch.zeros((NC, 4, 8), dtype=i32, device=dev)
-        fmt4[:, :pc] = fmt_p
-        vals4[:, :pc] = vals_p
+
+        def pack(q):
+            f, v = cpack.pack_color_endpoints_ldr(
+                e0.reshape(NC * pc, 4), e1.reshape(NC * pc, 4),
+                rc["rgbs"].reshape(NC * pc, 4), fmt_req.reshape(NC * pc),
+                q.repeat_interleave(pc), use_kernel=False)
+            return f.reshape(NC, pc), v.reshape(NC, pc, 8)
+
+        fmt4, vals4, use_q, matched = pack_partitions(pack, cq, cqm, pc)
+        fmt_p, vals_p = fmt4[:, :pc], vals4[:, :pc]
         e0i, e1i = _decode(profile, fmt_p, vals_p)
         ep0_t = torch.einsum("ntp,npc->ntc", pmask, e0i)
         ep1_t = torch.einsum("ntp,npc->ntc", pmask, e1i)
@@ -224,7 +256,7 @@ def trial2_refine_plain(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
             tex, u1, u2, p2c_f, cw, mean, e0, e1)
         e0, e1 = rc["ep0"], rc["ep1"]
         fmt, v = cpack.pack_color_endpoints_ldr(e0, e1, rc["rgbs"], fmt_req,
-                                                cq)
+                                                cq, use_kernel=False)
         e0i, e1i = _decode(profile, fmt[:, None], v[:, None])
         e0i, e1i = e0i[:, 0], e1i[:, 0]
         if r == 0:
@@ -382,6 +414,233 @@ def trial2_refine_cuda(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
             "err_pre": out_e[0], "err_post": out_e[1:]}
 
 
+# --- one refinement round: K5 (1 plane), K6 and K7 (2 planes) ---------------
+# The HDR trials refit and pack in PyTorch between rounds (trial.py), so a
+# round is one launch: the trial error of the incoming grid(s) against the
+# decoded endpoints, the realign (lanes still alive only), the error after
+# it and the infill the next refit needs. With ncolors == 0 (bootstrap) K5
+# skips the realign; K7 is the 2-plane bootstrap, the two infills alone.
+
+def refine_round_1plane_plain(pt, wgrid, dm, wq, alive, ep0, ep1, texels,
+                              pot, C: int, ncolors: int, u8_mask: bool,
+                              cw: tuple):
+    """One 1-plane round (JAX trial.py:675-713 without the refit and
+    pack) for NC lanes; lane i belongs to block i // C.
+
+    Args:
+      wgrid: (NC, W) int32 grids; dm/wq: (NC,) int32; alive: (NC,) bool;
+      ep0/ep1: (NC, 4, 4) int32 decoded endpoints by partition and
+      channel; texels: (N, T, 4) float32; pot: (N, T) int32 partition of
+      each texel; ncolors: parity classes to realign (0: bootstrap).
+
+    Returns dict grid (NC, W) int32 (realigned where alive), adjusted
+    (NC,) bool, undec (NC, T) float32 infill of grid, err_pre and
+    err_post (NC,) float32 trial errors of the incoming and the returned
+    grid.
+    """
+    tex = texels.repeat_interleave(C, 0)
+    idx = pot.to(torch.int64).repeat_interleave(C, 0)[..., None].expand(
+        -1, -1, 4)
+    ep0_t = torch.gather(ep0.to(torch.float32), 1, idx)
+    ep1_t = torch.gather(ep1.to(torch.float32), 1, idx)
+    Mint, Mf32, incid, wvalid, color_of, pn_rows = _lane_tables(pt, dm, wq)
+    err_pre = trial_error_1plane(tex, wgrid, Mint, ep0_t, ep1_t, cw, u8_mask)
+    grid, err_post = wgrid, err_pre
+    adjusted = torch.zeros_like(alive)
+    if ncolors:
+        new_w, adj = realign_ops.realign_decimated_grouped(
+            wgrid, tex, ep0_t, ep1_t, cw, pn_rows, Mf32, incid, wvalid,
+            color_of, ncolors)
+        grid = torch.where(alive[:, None], new_w, wgrid)
+        adjusted = adj & alive
+        err_post = trial_error_1plane(tex, grid, Mint, ep0_t, ep1_t, cw,
+                                      u8_mask)
+    return {"grid": grid, "adjusted": adjusted, "err_pre": err_pre,
+            "err_post": err_post,
+            "undec": torch.einsum("ntw,nw->nt", Mf32,
+                                  grid.to(torch.float32)) / 64.0}
+
+
+def refine_round_2plane_plain(pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1,
+                              texels, C: int, ncolors: int, u8_mask: bool,
+                              cw: tuple):
+    """One 2-plane, 1-partition round (JAX trial.py:1237-1282 without the
+    refit and pack), or with ncolors == 0 the bootstrap infills alone.
+
+    Args:
+      wg1/wg2: (NC, W) int32 grids of both planes; dm/wq: (NC,) int32;
+      alive: (NC,) bool; p2c: (N,) int32 plane-2 component per block;
+      ep0/ep1: (NC, 4) int32 decoded endpoints; texels: (N0, T, 4), block
+      b reading row b % N0; lane i belongs to block i // C.
+
+    Returns dict grid1/grid2 (NC, W), adjusted (NC,) bool, undec1/undec2
+    (NC, T) and err_pre/err_post (NC,); the bootstrap returns undec1 and
+    undec2 only.
+    """
+    Mint, Mf32, incid, wvalid, color_of, pn_rows = _lane_tables(pt, dm, wq)
+
+    def undec(g):
+        return torch.einsum("ntw,nw->nt", Mf32, g.to(torch.float32)) / 64.0
+
+    if ncolors == 0:
+        return {"undec1": undec(wg1), "undec2": undec(wg2)}
+    NC = wg1.shape[0]
+    rows = torch.arange(NC // C, device=texels.device) % texels.shape[0]
+    tex = texels[rows].repeat_interleave(C, 0)
+    p2c_f = p2c.repeat_interleave(C, 0)
+    p2lanes = torch.arange(4, device=tex.device)[None, :] == p2c_f[:, None]
+    e0, e1 = ep0.to(torch.float32), ep1.to(torch.float32)
+    err_pre = trial_error_2plane(tex, wg1, wg2, p2c_f, Mint, e0, e1, cw,
+                                 u8_mask)
+    ep0_t = e0[:, None, :].expand_as(tex)
+    ep1_t = e1[:, None, :].expand_as(tex)
+    nw1, adj1 = realign_ops.realign_decimated_grouped(
+        wg1, tex, ep0_t, ep1_t, cw, pn_rows, Mf32, incid, wvalid, color_of,
+        ncolors, plane_mask=p2lanes)
+    nw2, adj2 = realign_ops.realign_decimated_grouped(
+        wg2, tex, ep0_t, ep1_t, cw, pn_rows, Mf32, incid, wvalid, color_of,
+        ncolors, plane_mask=~p2lanes)
+    a = alive[:, None]
+    nw1 = torch.where(a, nw1, wg1)
+    nw2 = torch.where(a, nw2, wg2)
+    return {"grid1": nw1, "grid2": nw2, "adjusted": (adj1 | adj2) & alive,
+            "undec1": undec(nw1), "undec2": undec(nw2), "err_pre": err_pre,
+            "err_post": trial_error_2plane(tex, nw1, nw2, p2c_f, Mint, e0, e1,
+                                           cw, u8_mask)}
+
+
+def _round_lib(name):
+    lib = _build.load(name)
+    if not getattr(lib, "_astc_typed", False):
+        if name == "refine_round":
+            lib.astc_refine_round.restype = ctypes.c_int
+            lib.astc_refine_round.argtypes = (
+                [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8
+                + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 5)
+        else:
+            lib.astc_refine_round2.restype = ctypes.c_int
+            lib.astc_refine_round2.argtypes = (
+                [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9
+                + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 7)
+            lib.astc_refine_boot2.restype = ctypes.c_int
+            lib.astc_refine_boot2.argtypes = (
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                + [ctypes.c_void_p] * 3)
+        lib.astc_error_string.restype = ctypes.c_char_p
+        lib.astc_error_string.argtypes = [ctypes.c_int]
+        lib._astc_typed = True
+    return lib
+
+
+def _check_round(pt, W, T, dev):
+    k = pt.k
+    if W != k.wt_n.shape[1] or T != k.tap_w.shape[1]:
+        raise ValueError("grid or texel count does not match the tables")
+    if k.tap_w.device != dev:
+        raise ValueError(f"pass tables on {k.tap_w.device}, inputs on {dev}")
+    return k
+
+
+def _stream(dev):
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def refine_round_1plane_cuda(pt, wgrid, dm, wq, alive, ep0, ep1, texels,
+                             pot, C: int, ncolors: int, u8_mask: bool,
+                             cw: tuple):
+    """Launch kernel K5; same arguments and outputs as the plain version."""
+    global launches_round1
+    NC, W = wgrid.shape
+    N, T, _ = texels.shape
+    dev = texels.device
+    k = _check_round(pt, W, T, dev)
+    f32, i32 = torch.float32, torch.int32
+    if NC != N * C:
+        raise ValueError(f"{NC} lanes for {N} blocks x {C} candidates")
+    _build.check(wgrid, "wgrid", i32, (NC, W))
+    for name, t in (("dm", dm), ("wq", wq)):
+        _build.check(t, name, i32, (NC,))
+    _build.check(alive, "alive", torch.bool, (NC,))
+    _build.check(ep0, "ep0", i32, (NC, 4, 4))
+    _build.check(ep1, "ep1", i32, (NC, 4, 4))
+    _build.check(texels, "texels", f32, (N, T, 4))
+    _build.check(pot, "pot", i32, (N, T))
+    grid = torch.empty((NC, W), dtype=i32, device=dev)
+    adjusted = torch.empty((NC,), dtype=i32, device=dev)
+    undec = torch.empty((NC, T), dtype=f32, device=dev)
+    err = torch.empty((2, NC), dtype=f32, device=dev)
+    if NC:
+        lib = _round_lib("refine_round")
+        p = _build.ptr
+        rc = lib.astc_refine_round(
+            p(wgrid), p(dm), p(wq), p(alive), p(ep0), p(ep1), p(texels),
+            p(pot), p(k.tap_w), p(k.tap_i), p(k.wt_t), p(k.wt_i), p(k.wt_n),
+            p(k.dm_color), p(k.pn), N, C, T, W, k.wt_n.shape[0],
+            k.wt_t.shape[2], ncolors, int(u8_mask),
+            *(float(c) for c in cw), p(grid), p(adjusted), p(undec), p(err),
+            _stream(dev))
+        _raise_on(lib, rc, "refine_round")
+        launches_round1 += 1
+    return {"grid": grid, "adjusted": adjusted != 0, "undec": undec,
+            "err_pre": err[0], "err_post": err[1]}
+
+
+def refine_round_2plane_cuda(pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1,
+                             texels, C: int, ncolors: int, u8_mask: bool,
+                             cw: tuple):
+    """Launch kernel K6 (ncolors > 0) or K7 (ncolors == 0); same arguments
+    and outputs as the plain version."""
+    global launches_round2, launches_boot2
+    NC, W = wg1.shape
+    N0, T, _ = texels.shape
+    dev = texels.device
+    k = _check_round(pt, W, T, dev)
+    f32, i32 = torch.float32, torch.int32
+    if NC % C or (N0 and (NC // C) % N0):
+        raise ValueError(f"{NC} lanes of {C} candidates over {N0} texel rows")
+    if W > 63:
+        raise ValueError(f"grid of {W} weights: K6 takes at most 63")
+    N = NC // C
+    for name, t in (("wg1", wg1), ("wg2", wg2)):
+        _build.check(t, name, i32, (NC, W))
+    _build.check(dm, "dm", i32, (NC,))
+    u1 = torch.empty((NC, T), dtype=f32, device=dev)
+    u2 = torch.empty((NC, T), dtype=f32, device=dev)
+    lib = _round_lib("refine_round2")
+    p = _build.ptr
+    if ncolors == 0:
+        if NC:
+            rc = lib.astc_refine_boot2(
+                p(wg1), p(wg2), p(dm), p(k.tap_w), p(k.tap_i), NC, T, W,
+                k.wt_n.shape[0], p(u1), p(u2), _stream(dev))
+            _raise_on(lib, rc, "refine_boot2")
+            launches_boot2 += 1
+        return {"undec1": u1, "undec2": u2}
+    _build.check(wq, "wq", i32, (NC,))
+    _build.check(alive, "alive", torch.bool, (NC,))
+    _build.check(p2c, "p2c", i32, (N,))
+    _build.check(ep0, "ep0", i32, (NC, 4))
+    _build.check(ep1, "ep1", i32, (NC, 4))
+    _build.check(texels, "texels", f32, (N0, T, 4))
+    g1 = torch.empty((NC, W), dtype=i32, device=dev)
+    g2 = torch.empty((NC, W), dtype=i32, device=dev)
+    adjusted = torch.empty((NC,), dtype=i32, device=dev)
+    err = torch.empty((2, NC), dtype=f32, device=dev)
+    if NC:
+        rc = lib.astc_refine_round2(
+            p(wg1), p(wg2), p(dm), p(wq), p(alive), p(p2c), p(ep0), p(ep1),
+            p(texels), p(k.tap_w), p(k.tap_i), p(k.wt_t), p(k.wt_i),
+            p(k.wt_n), p(k.dm_color), p(k.pn), N, N0, C, T, W,
+            k.wt_n.shape[0], k.wt_t.shape[2], ncolors, int(u8_mask),
+            *(float(c) for c in cw), p(g1), p(g2), p(adjusted), p(u1), p(u2),
+            p(err), _stream(dev))
+        _raise_on(lib, rc, "refine_round2")
+        launches_round2 += 1
+    return {"grid1": g1, "grid2": g2, "adjusted": adjusted != 0,
+            "undec1": u1, "undec2": u2, "err_pre": err[0],
+            "err_post": err[1]}
+
+
 def _route(texels, use_kernel, cuda_fn, plain_fn, args):
     if texels.is_cuda and use_kernel:
         return cuda_fn(*args)
@@ -409,3 +668,25 @@ def trial2_refine(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c, texels,
     return _route(texels, use_kernel, trial2_refine_cuda, trial2_refine_plain,
                   (pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c, texels,
                    data_mean, ep0, ep1, C, R, u8_mask, cw, profile))
+
+
+def refine_round_1plane(pt, wgrid, dm, wq, alive, ep0, ep1, texels, pot,
+                        C: int, ncolors: int, u8_mask: bool, cw: tuple,
+                        use_kernel: bool = True):
+    """One 1-plane round: kernel K5 for CUDA tensors, the plain version for
+    CPU tensors."""
+    return _route(texels, use_kernel, refine_round_1plane_cuda,
+                  refine_round_1plane_plain,
+                  (pt, wgrid, dm, wq, alive, ep0, ep1, texels, pot, C,
+                   ncolors, u8_mask, cw))
+
+
+def refine_round_2plane(pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1, texels,
+                        C: int, ncolors: int, u8_mask: bool, cw: tuple,
+                        use_kernel: bool = True):
+    """One 2-plane round: kernel K6 (K7 for the bootstrap, ncolors == 0)
+    for CUDA tensors, the plain version for CPU tensors."""
+    return _route(texels, use_kernel, refine_round_2plane_cuda,
+                  refine_round_2plane_plain,
+                  (pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1, texels, C,
+                   ncolors, u8_mask, cw))

@@ -1,8 +1,10 @@
-"""Exact integer -> fp16 -> fp32 conversions of the decoder.
+"""Exact integer <-> fp16 / LNS conversions of the codec.
 
-Port of ``astcenc_tpu/ops/softfloat.py`` (the parts the LDR decoder uses):
-ASTC decodes to UNORM16 integers, converts those to fp16 bit patterns, and
-only then widens to fp32, so the conversions are integer ops.
+Port of ``astcenc_tpu/ops/softfloat.py`` (reference
+astcenc_vecmathlib.h:495-620): ASTC decodes to UNORM16 (LDR) or 16-bit LNS
+(HDR) integers, converts those to fp16 bit patterns, and only then widens
+to fp32, so the conversions are integer ops. ``float_to_lns`` is the
+encoder's HDR texel load.
 """
 
 from __future__ import annotations
@@ -28,8 +30,48 @@ def unorm16_to_sf16(p: torch.Tensor) -> torch.Tensor:
     return torch.where(p < 4, p << 8, r)
 
 
+def lns_to_sf16(p: torch.Tensor) -> torch.Tensor:
+    """16-bit LNS -> fp16 bits (reference astcenc_vecmathlib.h:537-556)."""
+    p = p.to(torch.int32)
+    mc = p & 0x7FF
+    ec = p >> 11
+    mt = torch.where(mc < 512, mc * 3,
+                     torch.where(mc < 1536, mc * 4 - 512, mc * 5 - 2048))
+    return torch.clamp((ec << 10) | (mt >> 3), max=0x7BFF)
+
+
 def float16_to_float(bits: torch.Tensor) -> torch.Tensor:
     """fp16 bit pattern (int) -> fp32 value, IEEE-exact."""
     b = bits.to(torch.int32) & 0xFFFF
     b = ((b + 0x8000) & 0xFFFF) - 0x8000      # wrap into int16 range
     return b.to(torch.int16).view(torch.float16).to(torch.float32)
+
+
+def float_to_float16(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> fp16 bit pattern (int32 in [0, 65535]), round to nearest
+    even."""
+    return x.to(torch.float32).to(torch.float16).view(torch.int16).to(
+        torch.int32) & 0xFFFF
+
+
+def float_to_lns(a: torch.Tensor) -> torch.Tensor:
+    """fp32 -> 16-bit LNS code as float (reference
+    astcenc_vecmathlib.h:582-620): NaN, negatives and values below 2^-26
+    give 0, values from 65536 up (and +Inf) give 65535."""
+    a = a.to(torch.float32)
+    bits = a.view(torch.int32)
+    exp = ((bits >> 23) & 0xFF) - 126
+    # sign and mantissa with the exponent of 0.5: a value in [0.5, 1)
+    mant = ((bits & 0x007FFFFF) | (bits & -0x80000000) | 0x3F000000).view(
+        torch.float32)
+    underflow_nan = ~(a > (1.0 / 67108864.0))
+    infinity = a >= 65536.0
+    small = exp < -13
+    av = torch.where(small, a * 33554432.0, (mant - 0.5) * 4096.0)
+    expv = torch.where(small, 0, exp + 14)
+    a2 = torch.where(av < 384.0, av * (4.0 / 3.0),
+                     torch.where(av <= 1408.0, av + 128.0,
+                                 (av + 512.0) * (4.0 / 5.0)))
+    out = a2 + expv.to(torch.float32) * 2048.0 + 1.0
+    out = torch.where(infinity, 65535.0, out)
+    return torch.where(underflow_nan, 0.0, out)

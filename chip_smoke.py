@@ -8,9 +8,10 @@ non-zero and never prints the last line:
 1. device: refuse to run without CUDA; print the card's name and power
    limit as nvidia-smi reports them;
 2. build: compile kernels K1 (mode search), K2 (1-plane refinement), K3
-   (2-plane refinement) and K4 (partition line errors) from
-   astcenc_torch/csrc with nvcc for sm_90a, one nvcc per source, started
-   together;
+   (2-plane refinement), K4 (partition line errors), K5 (one 1-plane HDR
+   round), K6 and K7 (one 2-plane HDR round, its bootstrap) and K9 (colour
+   quantizer lookup) from astcenc_torch/csrc with nvcc for sm_90a, one nvcc
+   per source, started together;
 3. kernels: capture the real inputs of every kernel form from a 512x512
    main-path encode (K1 with 1 and 2 planes and 2 and 3 partitions, K2 at
    1-3 partitions, K3, K4 at 2 and 3 partitions) and hold each kernel
@@ -26,9 +27,23 @@ non-zero and never prints the last line:
    (partitions, planes) read from the encoded blocks, launch counts; then
    a profiled encode (device ops, idle share, time by kernel);
 6. crop: a 256x256 crop encoded through the kernels and through the plain
-   versions, >= 99% of blocks identical.
+   versions, >= 99% of blocks identical;
+7. HDR kernels: capture the first-call inputs of every HDR kernel form
+   from a 512x512 synthetic float16 HDR encode at -ch (K5 bootstrap and
+   rounds at 1-3 partitions, K6, K7, K9's first and first 72-wide call)
+   and hold each against its plain version (K5, K6: grids identical on
+   99.9% of the lanes, errors within 3e-4; K7 within 1e-6; K9 bit-exact);
+8. HDR path: a 2048x2048 synthetic float16 HDR texture (right half with an
+   alpha of its own) through api.compress_image at 6x6 -medium -ch (phase
+   7's encode was the warm-up); a second encode must be identical and is
+   timed too; decoded to float32: encode rate, mPSNR, log-RMSE, block
+   counts by kind and by endpoint format, launch counts; then a profiled
+   encode of its central 1024x1024 quarter;
+9. HDR crop: a 256x256 crop of it at -cH through the kernels and through
+   the plain versions, >= 99% of blocks identical, HDR alpha present.
 
-The lines before the last are the kernel table as JSON and the nvidia-smi
+The lines before the last are the kernel table as JSON (K1-K4 launches
+counted on the LDR main path, K5-K9 on the HDR path) and the nvidia-smi
 line; the last line is {"ok": true, "device": {...}}.
 
 Each kernel's ``bound_ms`` is the larger of its bytes (each input tensor
@@ -52,7 +67,8 @@ import torch
 
 SIZE = 2048      # side of the main-path texture
 CAPTURE = 512    # side of the images whose kernel inputs are captured
-CROP = 256       # side of the crop compared with the plain versions
+CROP = 256       # side of the crops compared with the plain versions
+HDR_SIZE = 2048  # side of the HDR path's texture
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 
@@ -256,7 +272,7 @@ def _check_refine(tag, got, want):
 
 
 def _profile(run):
-    """Device time by kernel over one run (torch.profiler): K1-K4, the
+    """Device time by kernel over one run (torch.profiler): K1-K9, the
     other device operations by name, their count, and the share of the
     wall time the device was idle (busy = summed kernel and copy time; the
     encode runs on one stream)."""
@@ -283,23 +299,119 @@ def _profile(run):
            "device_ops": sum(r[2] for r in rows)}
     for tag, pat in (("K1_ms", "msearch_kernel"), ("K2_ms", "refine_kernel"),
                      ("K3_ms", "refine2_kernel"),
-                     ("K4_ms", "psearch_kernel")):
+                     ("K4_ms", "psearch_kernel"),
+                     ("K5_ms", "refine_round_kernel"),
+                     ("K6_ms", "refine_round2_kernel"),
+                     ("K7_ms", "refine_boot2_kernel"),
+                     ("K9_ms", "quant_lookup_kernel")):
         out[tag] = sum(r[0] for r in rows if pat in r[1])
     out["top"] = [[k[:60], round(ms, 3), n] for ms, k, n in rows[:10]]
     return out
 
 
-def _reset(msearch, refine, psearch):
+def _reset(msearch, refine, psearch, gather):
     msearch.launches = refine.launches = refine.launches2 = 0
-    psearch.launches = 0
+    refine.launches_round1 = refine.launches_round2 = 0
+    refine.launches_boot2 = psearch.launches = gather.launches = 0
 
 
-def _counts(msearch, refine, psearch):
+def _counts(msearch, refine, psearch, gather):
     return {"msearch": msearch.launches, "refine": refine.launches,
-            "refine2": refine.launches2, "psearch": psearch.launches}
+            "refine2": refine.launches2, "psearch": psearch.launches,
+            "refine_round": refine.launches_round1,
+            "refine_round2": refine.launches_round2,
+            "refine_boot2": refine.launches_boot2,
+            "quant_lookup": gather.launches}
 
 
-def _block_kinds(api, decompress, ctx, blocks):
+def _capture_hdr(refine, gather):
+    """Wrap the HDR kernels' dispatchers to record the inputs of the first
+    call of each form: K5 bootstrap and K5 rounds by partition count, K6,
+    K7, and K9 (its first call, and its first 72-wide call, the retain-top-
+    bits search). Returns (seen, restore)."""
+    seen = {}
+    orig = {"r1": refine.refine_round_1plane, "r2": refine.refine_round_2plane,
+            "q": gather.quant_lookup}
+
+    def keep(key, args):
+        if key not in seen:
+            seen[key] = [_clone(a) for a in args]
+
+    def r1(pt, *args, **kw):
+        keep(("K5", "boot" if args[9] == 0 else f"pc{pt.pc}"), (pt,) + args)
+        return orig["r1"](pt, *args, **kw)
+
+    def r2(pt, *args, **kw):
+        keep(("K7" if args[10] == 0 else "K6", "two"), (pt,) + args)
+        return orig["r2"](pt, *args, **kw)
+
+    def q(qidx, vals, *args, **kw):
+        keep(("K9", "first"), (qidx.to(torch.int32).contiguous(),
+                               vals.to(torch.int32).contiguous()))
+        if vals.shape[1] == 72:
+            keep(("K9", "k72"), (qidx.to(torch.int32).contiguous(),
+                                 vals.to(torch.int32).contiguous()))
+        return orig["q"](qidx, vals, *args, **kw)
+
+    refine.refine_round_1plane = r1
+    refine.refine_round_2plane = r2
+    gather.quant_lookup = q
+
+    def restore():
+        refine.refine_round_1plane = orig["r1"]
+        refine.refine_round_2plane = orig["r2"]
+        gather.quant_lookup = orig["q"]
+    return seen, restore
+
+
+# K5/K6, per lane: the trial error (40 per texel) before and after, the
+# realign (144 per texel and plane) on lanes still alive, the infill (8 per
+# texel and plane). K7: the infill alone. K9: a clamp and a lookup (4 per
+# element).
+def _ops_round(T, planes, lanes, alive, ncolors):
+    return (lanes * (80 * T + 8 * planes * T)
+            + (alive * 144 * planes * T if ncolors else 0))
+
+
+def _check_round(tag, got, want, grids):
+    """K5/K6 against the plain version: grids identical on >= 99.9% of the
+    lanes, errors within 3e-4 relative on live lanes, infills within 1e-6
+    relative where the grids agree."""
+    same = torch.ones_like(want["err_pre"], dtype=torch.bool)
+    for g in grids:
+        same &= (got[g] == want[g]).all(1)
+    frac = float(same.float().mean())
+    assert frac >= 0.999, f"{tag} identical grids {frac}"
+    worst = 0.0
+    for k in ("err_pre", "err_post"):
+        w = want[k][same]
+        rel = float(((got[k][same] - w).abs() / w.abs().clamp(min=1e-30))
+                    .max()) if w.numel() else 0.0
+        worst = max(worst, rel)
+    assert worst <= 3e-4, f"{tag} error rel {worst}"
+    urel = 0.0
+    for u in [k for k in want if k.startswith("undec")]:
+        d = (got[u][same] - want[u][same]).abs()
+        urel = max(urel, float((d / want[u][same].abs().clamp(min=1e-30))
+                               .max()) if d.numel() else 0.0)
+    assert urel <= 1e-6, f"{tag} infill rel {urel}"
+    assert bool((got["adjusted"][same] == want["adjusted"][same]).all())
+    mae = max(float((got[k] - want[k]).abs()[same].max())
+              if same.any() else 0.0 for k in ("err_pre", "err_post"))
+    return {"identical_grids": frac, "err_rel_max": worst,
+            "infill_rel_max": urel}, mae
+
+
+def _hdr_kinds(decompress, ctx, blocks):
+    """Block counts by (partitions, planes) and by endpoint format."""
+    kinds = _block_kinds(decompress, ctx, blocks)
+    fm = decompress.endpoint_formats(ctx.torch_decode_tables(),
+                                     torch.from_numpy(blocks).to(ctx.device))
+    vals, counts = torch.unique(fm[fm >= 0], return_counts=True)
+    return kinds, {int(v): int(c) for v, c in zip(vals, counts)}
+
+
+def _block_kinds(decompress, ctx, blocks):
     const, pc, planes = decompress.block_types(
         ctx.torch_decode_tables(), torch.from_numpy(blocks).to(ctx.device))
     out = {"constant": int(const.sum())}
@@ -319,6 +431,11 @@ def main() -> int:
     args = ap.parse_args()
 
     # --- 1. device ---------------------------------------------------------
+    t_start = time.perf_counter()
+
+    def at() -> str:
+        return f"[{time.perf_counter() - t_start:.0f} s]"
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU",
               file=sys.stderr)
@@ -326,7 +443,8 @@ def main() -> int:
     from astcenc_torch import api, testdata
     from astcenc_torch.codec import compress as compress_mod
     from astcenc_torch.codec import decompress, partition_search
-    from astcenc_torch.ops import _build, msearch, psearch, refine
+    from astcenc_torch.ops import _build, gather, msearch, psearch, refine
+    from astcenc_torch.utils import metrics
 
     smi = _smi()
     dev = torch.device("cuda", 0)
@@ -344,8 +462,9 @@ def main() -> int:
                f"{build_s:.1f} s (nvcc {json.dumps(_build.build_seconds)})")
     else:
         how = f"cached libraries loaded in {build_s:.1f} s"
-    print(f"build: K1 msearch.cu, K2 refine.cu, K3 refine2.cu, K4 psearch.cu "
-          f"{how}", flush=True)
+    print(f"build: K1 msearch.cu, K2 refine.cu, K3 refine2.cu, K4 psearch.cu, "
+          f"K5 refine_round.cu, K6 and K7 refine_round2.cu, K9 "
+          f"quant_lookup.cu {how}", flush=True)
 
     cfg = api.config_init(api.Profile.LDR, 6, 6, 1, api.Quality.MEDIUM, 0)
     ctx = api.context_alloc(cfg, device=dev)
@@ -364,7 +483,8 @@ def main() -> int:
     missing = want_forms - set(seen)
     assert not missing, f"forms not captured: {sorted(missing)}"
     stats = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0.0,
-                 "max_abs_err": 0.0} for k in ("K1", "K2", "K3", "K4")}
+                 "max_abs_err": 0.0}
+             for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K9")}
 
     def account(kern, form, ms, plain_ms, nbytes, ops, mae, detail):
         s = stats[kern]
@@ -484,17 +604,18 @@ def main() -> int:
     cfg1.tune_2plane_early_out_limit_correlation = 0.0
     ctx1 = api.context_alloc(cfg1, device=dev)
     img1 = testdata.synthetic_image(CAPTURE, CAPTURE, args.seed + 2)
-    _reset(msearch, refine, psearch)
+    counters = (msearch, refine, psearch, gather)
+    _reset(*counters)
     t0 = time.perf_counter()
     b1 = api.compress_image(ctx1, img1)
     torch.cuda.synchronize()
     s1 = time.perf_counter() - t0
-    n1 = _counts(msearch, refine, psearch)
+    n1 = _counts(*counters)
     assert n1["msearch"] > 0 and n1["refine"] > 0, n1
     d1 = api.decompress_image(ctx1, b1, CAPTURE, CAPTURE)[0]
     p1 = _psnr(d1, img1)
     assert np.isfinite(d1).all() and p1 > 20.0, p1
-    print(f"stage 1: {CAPTURE}x{CAPTURE}, partition count limit 1, 2-plane "
+    print(f"{at()} stage 1: {CAPTURE}x{CAPTURE}, partition count limit 1, 2-plane "
           f"limit 0: {b1.shape[0]} blocks in {s1:.3f} s (first call at this "
           f"configuration), PSNR {p1:.4f} dB, launches {json.dumps(n1)}",
           flush=True)
@@ -504,13 +625,14 @@ def main() -> int:
                                    independent_alpha=True)
     api.compress_image(ctx, img)                          # warm-up
     torch.cuda.synchronize()
-    _reset(msearch, refine, psearch)
+    _reset(*counters)
     t0 = time.perf_counter()
     blocks = api.compress_image(ctx, img)
     torch.cuda.synchronize()
     enc_s = time.perf_counter() - t0
-    launches = _counts(msearch, refine, psearch)
-    assert all(v > 0 for v in launches.values()), launches
+    launches = _counts(*counters)
+    ldr_kernels = ("msearch", "refine", "refine2", "psearch")
+    assert all(launches[k] > 0 for k in ldr_kernels), launches
     side = -(-SIZE // 6)
     assert blocks.shape == (side * side, 16), blocks.shape
     t0 = time.perf_counter()
@@ -522,17 +644,17 @@ def main() -> int:
     assert dec.shape == img.shape and np.isfinite(dec).all()
     psnr = _psnr(dec, img)
     assert psnr > 20.0, f"PSNR {psnr} dB"
-    kinds = _block_kinds(api, decompress, ctx, blocks)
+    kinds = _block_kinds(decompress, ctx, blocks)
     for need in ("pc1_2plane", "pc2_1plane", "pc3_1plane"):
         assert kinds.get(need, 0) > 0, f"no {need} blocks: {kinds}"
-    print(f"main path: {SIZE}x{SIZE} RGBA8, {blocks.shape[0]} blocks at 6x6 "
+    print(f"{at()} main path: {SIZE}x{SIZE} RGBA8, {blocks.shape[0]} blocks at 6x6 "
           f"-medium, encode {enc_s:.3f} s = {SIZE * SIZE / enc_s / 1e6:.3f} "
           f"Mtexels/s (again: {enc2_s:.3f} s = "
           f"{SIZE * SIZE / enc2_s / 1e6:.3f} Mtexels/s), PSNR {psnr:.4f} dB, "
           f"blocks {json.dumps(kinds)}, launches {json.dumps(launches)} | "
           f"{smi}", flush=True)
-    print(f"profile: {json.dumps(_profile(lambda: api.compress_image(ctx, img)))}"
-          f" | {smi}", flush=True)
+    prof = _profile(lambda: api.compress_image(ctx, img))
+    print(f"{at()} profile: {json.dumps(prof)} | {smi}", flush=True)
 
     # --- 6. crop: kernels against plain versions ----------------------------
     crop = np.ascontiguousarray(img[:CROP, SIZE // 2 - CROP // 2:
@@ -543,11 +665,156 @@ def main() -> int:
     d_k = api.decompress_image(ctx, b_k, CROP, CROP)[0]
     d_p = api.decompress_image(ctx, b_p, CROP, CROP)[0]
     assert ident >= 0.99, f"crop identical blocks {ident}"
-    print(f"crop: {CROP}x{CROP} (half of it with independent alpha) kernels "
+    print(f"{at()} crop: {CROP}x{CROP} (half of it with independent alpha) kernels "
           f"vs plain versions: {ident:.4f} identical blocks, PSNR "
           f"{_psnr(d_k, crop):.4f} vs {_psnr(d_p, crop):.4f} dB, blocks "
-          f"{json.dumps(_block_kinds(api, decompress, ctx, b_k))}",
+          f"{json.dumps(_block_kinds(decompress, ctx, b_k))}",
           flush=True)
+
+    # --- 7. HDR kernels vs plain at captured shapes ------------------------
+    cfg_h = api.config_init(api.Profile.HDR_RGB_LDR_A, 6, 6, 1,
+                            api.Quality.MEDIUM, 0)
+    ctx_h = api.context_alloc(cfg_h, device=dev)
+    seen, restore = _capture_hdr(refine, gather)
+    try:
+        api.compress_image(ctx_h, testdata.synthetic_hdr_image(
+            CAPTURE, CAPTURE, args.seed + 1, independent_alpha=True))
+    finally:
+        restore()
+    want_forms = {("K5", "boot"), ("K5", "pc1"), ("K5", "pc2"), ("K5", "pc3"),
+                  ("K6", "two"), ("K7", "two"), ("K9", "first"),
+                  ("K9", "k72")}
+    missing = want_forms - set(seen)
+    assert not missing, f"HDR forms not captured: {sorted(missing)}"
+
+    for form in ("boot", "pc1", "pc2", "pc3"):
+        a = seen[("K5", form)]
+        pt, ncolors = a[0], a[10]
+        got = refine.refine_round_1plane_cuda(*a)
+        want = refine.refine_round_1plane_plain(*a)
+        torch.cuda.synchronize()
+        detail, mae = _check_round(f"K5 {form}", got, want, ("grid",))
+        k = pt.k
+        nbytes = (_nbytes(*a[1:9], k.tap_w, k.tap_i, k.wt_t, k.wt_i, k.wt_n,
+                          k.dm_color, k.pn) + _nbytes(*got.values()))
+        lanes = a[1].shape[0]
+        account("K5", form, _time_ms(lambda: refine.refine_round_1plane_cuda(
+                    *a), 5),
+                _time_ms(lambda: refine.refine_round_1plane_plain(*a), 2),
+                nbytes, _ops_round(a[7].shape[1], 1, lanes,
+                                   int(a[4].sum()), ncolors), mae,
+                {"lanes": lanes, **detail})
+
+    a = seen[("K6", "two")]
+    got = refine.refine_round_2plane_cuda(*a)
+    want = refine.refine_round_2plane_plain(*a)
+    torch.cuda.synchronize()
+    detail, mae = _check_round("K6", got, want, ("grid1", "grid2"))
+    k = a[0].k
+    lanes = a[1].shape[0]
+    account("K6", "two", _time_ms(lambda: refine.refine_round_2plane_cuda(
+                *a), 5),
+            _time_ms(lambda: refine.refine_round_2plane_plain(*a), 2),
+            _nbytes(*a[1:10], k.tap_w, k.tap_i, k.wt_t, k.wt_i, k.wt_n,
+                    k.dm_color, k.pn) + _nbytes(*got.values()),
+            _ops_round(a[9].shape[1], 2, lanes, int(a[5].sum()), a[11]), mae,
+            {"lanes": lanes, **detail})
+
+    a = seen[("K7", "two")]
+    got = refine.refine_round_2plane_cuda(*a)
+    want = refine.refine_round_2plane_plain(*a)
+    torch.cuda.synchronize()
+    urel = max(float(((got[u] - want[u]).abs()
+                      / want[u].abs().clamp(min=1e-30)).max())
+               for u in ("undec1", "undec2"))
+    assert urel <= 1e-6, f"K7 infill rel {urel}"
+    k = a[0].k
+    lanes, T = a[1].shape[0], a[9].shape[1]
+    account("K7", "two", _time_ms(lambda: refine.refine_round_2plane_cuda(
+                *a), 5),
+            _time_ms(lambda: refine.refine_round_2plane_plain(*a), 2),
+            _nbytes(a[1], a[2], a[3], k.tap_w, k.tap_i)
+            + _nbytes(*got.values()), lanes * 16 * T,
+            max(float((got[u] - want[u]).abs().max())
+                for u in ("undec1", "undec2")),
+            {"lanes": lanes, "infill_rel_max": urel})
+
+    for form in ("first", "k72"):
+        q, v = seen[("K9", form)]
+        got = gather.quant_lookup_cuda(q, v)
+        want = gather.quant_lookup_plain(q, v)
+        torch.cuda.synchronize()
+        assert bool((got == want).all()), f"K9 {form} differs"
+        account("K9", form, _time_ms(lambda: gather.quant_lookup_cuda(q, v),
+                                     20),
+                _time_ms(lambda: gather.quant_lookup_plain(q, v), 20),
+                _nbytes(q, v, got) + 2 * 17 * 256 * 4, 4.0 * v.numel(), 0.0,
+                {"rows": v.shape[0], "values": v.shape[1],
+                 "bit_exact": True})
+
+    # --- 8. the HDR path ----------------------------------------------------
+    img_h = testdata.synthetic_hdr_image(HDR_SIZE, HDR_SIZE, args.seed,
+                                         independent_alpha=True)
+    src_h = img_h.astype(np.float32)
+    # Phase 7's encode at this configuration was the warm-up.
+    _reset(*counters)
+    t0 = time.perf_counter()
+    blocks_h = api.compress_image(ctx_h, img_h)
+    torch.cuda.synchronize()
+    enc_h = time.perf_counter() - t0
+    launches_h = _counts(*counters)
+    hdr_kernels = ("msearch", "psearch", "refine_round", "refine_round2",
+                   "refine_boot2", "quant_lookup")
+    assert all(launches_h[k] > 0 for k in hdr_kernels), launches_h
+    t0 = time.perf_counter()
+    again = api.compress_image(ctx_h, img_h)
+    torch.cuda.synchronize()
+    enc2_h = time.perf_counter() - t0
+    assert (again == blocks_h).all(), "two HDR encodes of one image differ"
+    dec_h = api.decompress_image(ctx_h, blocks_h, HDR_SIZE, HDR_SIZE,
+                                 out_type="f32")[0]
+    assert dec_h.shape == img_h.shape and np.isfinite(dec_h).all()
+    mp = metrics.mpsnr(dec_h, src_h)
+    lr = metrics.log_rmse(dec_h, src_h)
+    kinds_h, fmts_h = _hdr_kinds(decompress, ctx_h, blocks_h)
+    for need in ("pc1_2plane", "pc2_1plane", "pc3_1plane"):
+        assert kinds_h.get(need, 0) > 0, f"no {need} blocks: {kinds_h}"
+    assert any(f in fmts_h for f in (7, 11, 14)), fmts_h
+    texels_h = HDR_SIZE * HDR_SIZE
+    print(f"{at()} HDR path: {HDR_SIZE}x{HDR_SIZE} float16 RGBA, "
+          f"{blocks_h.shape[0]} blocks at 6x6 -medium -ch, encode "
+          f"{enc_h:.3f} s = {texels_h / enc_h / 1e6:.4f} Mtexels/s (again: "
+          f"{enc2_h:.3f} s = {texels_h / enc2_h / 1e6:.4f} Mtexels/s), "
+          f"mPSNR {mp:.4f} dB, log-RMSE {lr:.5f}, blocks "
+          f"{json.dumps(kinds_h)}, endpoint formats {json.dumps(fmts_h)}, "
+          f"launches {json.dumps(launches_h)} | {smi}", flush=True)
+    # Profiled on the central quarter (both halves of the alpha): the whole
+    # texture's 800,000 device operations take minutes to tabulate.
+    q = HDR_SIZE // 4
+    img_p = np.ascontiguousarray(img_h[q:3 * q, q:3 * q])
+    prof_h = _profile(lambda: api.compress_image(ctx_h, img_p))
+    print(f"{at()} HDR profile ({2 * q}x{2 * q} centre): "
+          f"{json.dumps(prof_h)} | {smi}", flush=True)
+
+    # --- 9. HDR crop at -cH: kernels against plain versions -----------------
+    ctx_hh = api.context_alloc(api.config_init(
+        api.Profile.HDR, 6, 6, 1, api.Quality.MEDIUM, 0), device=dev)
+    crop_h = np.ascontiguousarray(
+        img_h[:CROP, HDR_SIZE // 2 - CROP // 2:HDR_SIZE // 2 + CROP // 2])
+    b_k = api.compress_image(ctx_hh, crop_h)
+    b_p = compress_mod.compress_image(ctx_hh, crop_h, use_kernels=False)
+    ident = float((b_k == b_p).all(1).mean())
+    d_k, d_p = (api.decompress_image(ctx_hh, b, CROP, CROP,
+                                     out_type="f32")[0] for b in (b_k, b_p))
+    kinds_c, fmts_c = _hdr_kinds(decompress, ctx_hh, b_k)
+    assert ident >= 0.99, f"HDR crop identical blocks {ident}"
+    assert 15 in fmts_c, fmts_c
+    src_c = crop_h.astype(np.float32)
+    print(f"{at()} HDR crop: {CROP}x{CROP} at -cH (half of it with independent "
+          f"alpha) kernels vs plain versions: {ident:.4f} identical blocks, "
+          f"mPSNR {metrics.mpsnr(d_k, src_c):.4f} vs "
+          f"{metrics.mpsnr(d_p, src_c):.4f} dB, blocks {json.dumps(kinds_c)}, "
+          f"endpoint formats {json.dumps(fmts_c)}", flush=True)
 
     meta = {"K1": ("msearch", "astcenc_torch/csrc/msearch.cu",
                    "astcenc_tpu/ops/msearch_pallas.py:281"),
@@ -556,13 +823,23 @@ def main() -> int:
             "K3": ("refine2", "astcenc_torch/csrc/refine2.cu",
                    "astcenc_tpu/ops/refine_pallas.py:689"),
             "K4": ("psearch", "astcenc_torch/csrc/psearch.cu",
-                   "astcenc_tpu/ops/psearch_pallas.py:37")}
+                   "astcenc_tpu/ops/psearch_pallas.py:37"),
+            "K5": ("refine_round", "astcenc_torch/csrc/refine_round.cu",
+                   "astcenc_tpu/ops/refine_pallas.py:184"),
+            "K6": ("refine_round2", "astcenc_torch/csrc/refine_round2.cu",
+                   "astcenc_tpu/ops/refine_pallas.py:1090"),
+            "K7": ("refine_boot2", "astcenc_torch/csrc/refine_round2.cu",
+                   "astcenc_tpu/ops/refine_pallas.py:1244"),
+            "K9": ("quant_lookup", "astcenc_torch/csrc/quant_lookup.cu",
+                   "astcenc_tpu/ops/gather_pallas.py:170")}
     kernels = []
     for kern, (name, src, rep) in meta.items():
         s = stats[kern]
         bms, by = _bound(s["bytes"], s["ops"])
+        # K1-K4 count on the LDR main path, K5-K9 on the HDR path.
+        n = (launches if kern in ("K1", "K2", "K3", "K4") else launches_h)
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": launches[name],
+                        "replaces": rep, "launches": n[name],
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": bms,
                         "bound_by": by, "library_ms": None})

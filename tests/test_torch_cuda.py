@@ -1,6 +1,7 @@
-"""astcenc_torch kernels K1-K4 against their plain PyTorch versions on a
-CUDA card. Needs a card (the kernels have no CPU build) and no jax, so it
-also runs where jax is missing:
+"""astcenc_torch kernels K1-K7 and K9 against their plain PyTorch versions
+on a CUDA card, and encodes through the kernels against the plain path.
+Needs a card (the kernels have no CPU build) and no jax, so it also runs
+where jax is missing:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -263,6 +264,129 @@ def test_encode_kernels_match_plain(cuda_device):
     got = api.compress_image(ctx, img)
     want = tc.compress_image(ctx, img, use_kernels=False)
     assert (got == want).all(1).mean() >= 0.9
+
+
+def _hdr_ctx(dev, profile=api.Profile.HDR_RGB_LDR_A):
+    return api.context_alloc(api.config_init(
+        profile, 6, 6, 1, api.Quality.MEDIUM, 0), device=dev)
+
+
+def _hdr_state(ctx, seed, dev, side=96):
+    img = testdata.synthetic_hdr_image(side, side, seed,
+                                       independent_alpha=True)
+    tex = torch.from_numpy(tc.image_to_blocks(ctx, img)).to(dev)
+    return tc.make_block_state(tex, int(ctx.config.profile))
+
+
+def _first_calls(mod, name, run, key):
+    """Run ``run()`` with ``mod.name`` wrapped; the arguments of the first
+    call of each form, by ``key(args)``."""
+    seen = {}
+    orig = getattr(mod, name)
+
+    def wrap(*a, **kw):
+        seen.setdefault(key(a), a)
+        return orig(*a, **kw)
+
+    setattr(mod, name, wrap)
+    try:
+        run()
+    finally:
+        setattr(mod, name, orig)
+    return seen
+
+
+def _check_round(got, want, grids):
+    """K5/K6 against the plain version: grids identical on >= 99.9% of the
+    lanes, errors within 3e-4, infills equal on those lanes."""
+    same = torch.ones_like(want["err_pre"], dtype=torch.bool)
+    for g in grids:
+        same &= (got[g] == want[g]).all(1)
+    assert same.float().mean() >= 0.999
+    for k in ("err_pre", "err_post"):
+        torch.testing.assert_close(got[k][same], want[k][same], rtol=3e-4,
+                                   atol=0.0)
+    assert (got["adjusted"][same] == want["adjusted"][same]).all()
+    for u in [k for k in want if k.startswith("undec")]:
+        assert (got[u][same] == want[u][same]).all()
+
+
+@pytest.mark.parametrize("pc", [1, 2])
+def test_refine_round_kernel_matches_plain(cuda_device, pc):
+    """K5 (and its bootstrap) on the inputs the plain path gives a 1-plane
+    HDR trial."""
+    from astcenc_torch.ops import refine
+    ctx = _hdr_ctx(cuda_device)
+    st = _hdr_state(ctx, 40 + pc, cuda_device)
+    N = st["texels"].shape[0]
+    ql = torch.full((N,), 11, dtype=torch.int32, device=cuda_device)
+    ext = torch.ones(N, dtype=torch.bool, device=cuda_device)
+    kw = {}
+    if pc > 1:
+        tabs = ctx.partition_tables(pc)
+        rows = torch.from_numpy(np.random.RandomState(pc).randint(
+            0, tabs.count_selected, N)).to(cuda_device)
+        kw = {"pot": tabs.pot[rows], "counts": tabs.counts[rows]}
+    seen = _first_calls(
+        refine, "refine_round_1plane",
+        lambda: trial.trial1_records(st, ctx.pass_tables("full", pc),
+                                     ctx.config, 2, False, ql, ext,
+                                     use_kernels=False, **kw),
+        lambda a: a[10] > 0)
+    for realign in (False, True):                  # bootstrap, then a round
+        a = seen[realign]
+        _check_round(refine.refine_round_1plane_cuda(*a),
+                     refine.refine_round_1plane_plain(*a), ("grid",))
+
+
+def test_refine_round2_kernels_match_plain(cuda_device):
+    """K6 and K7 on the inputs the plain path gives the folded 2-plane HDR
+    trial."""
+    from astcenc_torch.ops import refine
+    ctx = _hdr_ctx(cuda_device)
+    st = _hdr_state(ctx, 50, cuda_device)
+    N = st["texels"].shape[0]
+    ql = torch.full((N,), 11, dtype=torch.int32, device=cuda_device)
+    ext = torch.ones((N, 4), dtype=torch.bool, device=cuda_device)
+    seen = _first_calls(
+        refine, "refine_round_2plane",
+        lambda: trial.trial2_records(st, ctx.pass_tables("two"), ctx.config,
+                                     2, False, ql, ext, use_kernels=False),
+        lambda a: a[11] > 0)
+    a = seen[True]
+    _check_round(refine.refine_round_2plane_cuda(*a),
+                 refine.refine_round_2plane_plain(*a), ("grid1", "grid2"))
+    a = seen[False]
+    got = refine.refine_round_2plane_cuda(*a)
+    want = refine.refine_round_2plane_plain(*a)
+    for u in ("undec1", "undec2"):
+        assert (got[u] == want[u]).all()
+
+
+def test_quant_lookup_kernel_matches_plain(cuda_device):
+    """K9, bit for bit, clamping included."""
+    from astcenc_torch.ops import gather
+    rng = np.random.RandomState(12)
+    q = torch.from_numpy(rng.randint(-2, 19, 70000).astype(np.int32)).to(
+        cuda_device)
+    v = torch.from_numpy(rng.randint(-20, 280, (70000, 9)).astype(
+        np.int32)).to(cuda_device)
+    assert (gather.quant_lookup_cuda(q, v)
+            == gather.quant_lookup_plain(q, v)).all()
+
+
+def test_hdr_encode_kernels_match_plain(cuda_device):
+    """A 96x96 -cH (HDR alpha) encode through the kernels and through the
+    plain versions; HDR endpoint formats, HDR alpha (15) among them."""
+    from astcenc_torch.codec import decompress
+    ctx = _hdr_ctx(cuda_device, api.Profile.HDR)
+    img = testdata.synthetic_hdr_image(96, 96, 3, independent_alpha=True)
+    got = api.compress_image(ctx, img)
+    want = tc.compress_image(ctx, img, use_kernels=False)
+    assert (got == want).all(1).mean() >= 0.99
+    fmts = decompress.endpoint_formats(ctx.torch_decode_tables(),
+                                       torch.from_numpy(got).to(cuda_device))
+    assert (fmts == 15).any()
 
 
 def test_main_path_encode_kernels_match_plain(cuda_device):

@@ -58,14 +58,14 @@ def test_slice_matches_jax():
 
 
 def test_unported_stages_refused():
-    """What the encoder does not do yet raises: HDR profiles, 3D blocks and
-    per-block alpha weighting."""
+    """What the encoder does not do yet raises: 3D blocks (LDR and HDR),
+    per-block alpha weighting and RGBM."""
     img = testdata.synthetic_image(12, 12, 1)
     for profile, dims, flags in (
-            (tapi.Profile.HDR, (6, 6, 1), 0),
-            (tapi.Profile.HDR_RGB_LDR_A, (6, 6, 1), 0),
+            (tapi.Profile.HDR, (4, 4, 4), 0),
             (tapi.Profile.LDR, (4, 4, 4), 0),
-            (tapi.Profile.LDR, (6, 6, 1), tapi.Flags.USE_ALPHA_WEIGHT)):
+            (tapi.Profile.LDR, (6, 6, 1), tapi.Flags.USE_ALPHA_WEIGHT),
+            (tapi.Profile.LDR, (6, 6, 1), tapi.Flags.MAP_RGBM)):
         tctx = tapi.context_alloc(tapi.config_init(
             profile, *dims, tapi.Quality.MEDIUM, flags), device="cpu")
         with pytest.raises(NotImplementedError):

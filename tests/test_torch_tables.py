@@ -101,9 +101,9 @@ def test_context_defaults_to_the_card():
 
 
 def test_port_imports_without_jax():
-    """Importing the port, its API and every module of codec/ and ops/
-    (and building tables) loads jax under no name and no module whose file
-    lies under astcenc_tpu/."""
+    """Importing the port, its API, its test data and every module of
+    codec/, ops/ and utils/ (and building tables) loads jax under no name
+    and no module whose file lies under astcenc_tpu/."""
     import os
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ref = os.path.join(root, "astcenc_tpu") + os.sep
@@ -111,8 +111,10 @@ def test_port_imports_without_jax():
         "import importlib, os, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
         "import astcenc_torch, astcenc_torch.api as api\n"
-        "import astcenc_torch.codec, astcenc_torch.ops\n"
-        "for pkg in (astcenc_torch.codec, astcenc_torch.ops):\n"
+        "import astcenc_torch.codec, astcenc_torch.ops, astcenc_torch.utils\n"
+        "import astcenc_torch.testdata\n"
+        "for pkg in (astcenc_torch.codec, astcenc_torch.ops, "
+        "astcenc_torch.utils):\n"
         "    for m in pkgutil.iter_modules(pkg.__path__):\n"
         "        importlib.import_module(pkg.__name__ + '.' + m.name)\n"
         "cfg = api.config_init(api.Profile.LDR, 6, 6, 1, "
