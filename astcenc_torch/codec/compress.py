@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .. import config as host_config
+from ..ops import gather
 from ..ops import softfloat as sf
 from . import partition_search, physical, trial
 
@@ -107,12 +108,13 @@ def _scatter(full: dict, idx, part: dict) -> dict:
     return out
 
 
-def stage1_1plane(ctx, texels, use_kernels: bool = True):
+def stage1_1plane(ctx, texels, use_kernels: bool = True,
+                  disabled: frozenset = frozenset()):
     """Block state, constant detection and the 1-partition 1-plane passes
     (compress.py:290-411). Returns (scb, aux); aux holds what the later
     stages and finalize read: the block state, the error threshold, the
     weight-quant limit and best error the later trials use, and the
-    2-plane gate."""
+    2-plane gate. ``use_kernels``/``disabled``: ``trial._switches``."""
     cfg = ctx.config
     et = ctx.encoder_tables()
     dt = ctx.torch_decode_tables()
@@ -160,7 +162,7 @@ def stage1_1plane(ctx, texels, use_kernels: bool = True):
         recs = trial.trial1_records(
             st, ctx.pass_tables("always" if i == 0 else "full"), cfg,
             profile, _u8_mask(cfg), full_limit, ~scb["finished"],
-            use_kernels=use_kernels)
+            use_kernels=use_kernels, disabled=disabled)
         scb, errv = trial.apply_records_1plane(scb, recs, thr1, 1, pindex)
         won = ~scb["block_type_error"]
         pk = dt.block_mode_packed_index[
@@ -184,7 +186,8 @@ def stage1_1plane(ctx, texels, use_kernels: bool = True):
 
 
 def stage2a_2plane(ctx, st, scb, quant_limit, best0, error_threshold,
-                   overshoot: float, use_kernels: bool = True):
+                   overshoot: float, use_kernels: bool = True,
+                   disabled: frozenset = frozenset()):
     """1-partition 2-plane trials (compress.py:432-494) on blocks the
     correlation gate left eligible: the four plane-2 components in one
     folded batch, then per component the reference's sequential take and
@@ -202,7 +205,8 @@ def stage2a_2plane(ctx, st, scb, quant_limit, best0, error_threshold,
     ext_valid = torch.stack(cand_act, 1) & ~scb["finished"][:, None]
     recs = trial.trial2_records(st, ctx.pass_tables("two"), cfg,
                                 int(cfg.profile), _u8_mask(cfg), quant_limit,
-                                ext_valid, use_kernels=use_kernels)
+                                ext_valid, use_kernels=use_kernels,
+                                disabled=disabled)
     stopped = torch.zeros((N,), dtype=torch.bool, device=dev)
     for i, comp in enumerate(trial.COMP_ORDER):
         recs_i = {k: v.reshape((4, N) + tuple(v.shape[1:]))[i]
@@ -241,7 +245,8 @@ def multipart_pcs(ctx) -> tuple:
 
 def stage2b_one_pc(ctx, st, scb, quant_limit, best_prev, pc: int,
                    error_threshold, overshoot: float,
-                   use_kernels: bool = True):
+                   use_kernels: bool = True,
+                   disabled: frozenset = frozenset()):
     """One partition count of the multi-partition search
     (compress.py:533-619): rank the partitionings, try the best few in one
     folded batch, replay the sequential take with the inner early-outs,
@@ -267,7 +272,7 @@ def stage2b_one_pc(ctx, st, scb, quant_limit, best_prev, pc: int,
     recs = trial.trial1_records(
         st_f, ctx.pass_tables("full", pc), cfg, int(cfg.profile),
         _u8_mask(cfg), quant_limit.repeat(ntr), ext, pot=tabs.pot[rows],
-        counts=tabs.counts[rows], use_kernels=use_kernels)
+        counts=tabs.counts[rows], use_kernels=use_kernels, disabled=disabled)
     best_this = torch.full((N,), ERROR_CALC_DEFAULT, device=dev)
     for ti in range(ntr):
         recs_i = {k: v.reshape((ntr, N) + tuple(v.shape[1:]))[ti]
@@ -307,12 +312,14 @@ def finalize_pack(dt, et, scb, aux, profile: int):
     return physical.symbolic_to_physical_batch(dt, scb)
 
 
-def compress_symbolic(ctx, texels, use_kernels: bool = True):
+def compress_symbolic(ctx, texels, use_kernels: bool = True,
+                      disabled: frozenset = frozenset()):
     """Stage 1 -> 2a -> 2b on one chunk of (N, T, 4) float32 texels on
     ctx.device (compress.py:268-286). Returns (scb, aux) before the
     finalize step."""
     cfg = ctx.config
-    scb, aux = stage1_1plane(ctx, texels, use_kernels=use_kernels)
+    kw = {"use_kernels": use_kernels, "disabled": disabled}
+    scb, aux = stage1_1plane(ctx, texels, **kw)
     st = aux["st"]
     thr, ovs = aux["error_threshold"], aux["overshoot"]
     ql, best0 = aux["quant_limit"], aux["best0"]
@@ -320,8 +327,7 @@ def compress_symbolic(ctx, texels, use_kernels: bool = True):
         idx = torch.nonzero(~scb["finished"] & ~aux["skip2p"])[:, 0]
         if idx.numel():
             sub = stage2a_2plane(ctx, _sub(st, idx), _sub(scb, idx), ql[idx],
-                                 best0[idx], thr[idx], ovs,
-                                 use_kernels=use_kernels)
+                                 best0[idx], thr[idx], ovs, **kw)
             scb = _scatter(scb, idx, sub)
     pcs = multipart_pcs(ctx)
     best_prev = best0
@@ -332,8 +338,7 @@ def compress_symbolic(ctx, texels, use_kernels: bool = True):
             if idx.numel():
                 sub, bt = stage2b_one_pc(
                     ctx, _sub(st, idx), _sub(scb, idx), ql[idx],
-                    best_prev[idx], pc, thr[idx], ovs,
-                    use_kernels=use_kernels)
+                    best_prev[idx], pc, thr[idx], ovs, **kw)
                 scb = _scatter(scb, idx, sub)
                 best_this[idx] = bt
         # A skipped count leaves the next one the default baseline.
@@ -341,10 +346,12 @@ def compress_symbolic(ctx, texels, use_kernels: bool = True):
     return scb, aux
 
 
-def compress_blocks(ctx, texels, use_kernels: bool = True):
+def compress_blocks(ctx, texels, use_kernels: bool = True,
+                    disabled: frozenset = frozenset()):
     """Compress one chunk of (N, T, 4) float32 texels on ctx.device to
     (N, 16) uint8 blocks."""
-    scb, aux = compress_symbolic(ctx, texels, use_kernels=use_kernels)
+    scb, aux = compress_symbolic(ctx, texels, use_kernels=use_kernels,
+                                 disabled=disabled)
     return finalize_pack(ctx.torch_decode_tables(), ctx.encoder_tables(),
                          scb, aux, int(ctx.config.profile))
 
@@ -414,14 +421,18 @@ def compress_image(ctx, image, swizzle=(0, 1, 2, 3), progress_callback=None,
 
     ``use_kernels=False`` runs the plain PyTorch versions of the kernels on
     any device (for comparison on the card); the public API never sets it.
+    The kernel families that ``ASTC_DISABLE_KERNELS`` switches off are read
+    once per call (``gather.disabled_kernels``).
     """
     check_supported(ctx.config)
+    disabled = gather.disabled_kernels()
     blocks = image_to_blocks(ctx, image, swizzle)
     n = blocks.shape[0]
     outs = []
     for lo in range(0, n, CHUNK):
         tex = torch.from_numpy(blocks[lo:lo + CHUNK]).to(ctx.device)
-        outs.append(compress_blocks(ctx, tex, use_kernels=use_kernels).cpu())
+        outs.append(compress_blocks(ctx, tex, use_kernels=use_kernels,
+                                    disabled=disabled).cpu())
         if progress_callback is not None:
             progress_callback(min(100.0, 100.0 * min(lo + CHUNK, n) / n))
     return torch.cat(outs).numpy()

@@ -10,6 +10,14 @@ the refinement rounds through K2 (1 plane, 1-4 partitions) and K3
 pack in PyTorch between rounds and run each round through K5 (1 plane) or
 K6 and K7 (2 planes), as the JAX package does (trial.py:624-659,
 :1192-1226).
+
+``ASTC_DISABLE_KERNELS`` switches the ``msearch`` and ``refine`` families
+off where the JAX package honours them (trial.py:431-433, :596-598,
+:1024-1026, :1164-1166): ``compress.compress_image`` reads it once per
+image (``gather.disabled_kernels``) and hands the set down as
+``disabled``. With
+``refine`` off the trials run the plain refinement (the JAX package's XLA
+branches), whose table gathers still go to kernels K8 and K9.
 """
 
 from __future__ import annotations
@@ -288,6 +296,14 @@ def _w64(w):
     return out
 
 
+def _switches(use_kernels: bool, disabled: frozenset):
+    """(K1 runs the mode search, the refinement kernels run the rounds):
+    ``use_kernels=False`` runs every plain version, ``disabled`` names the
+    kernel families switched off."""
+    return (use_kernels and "msearch" not in disabled,
+            use_kernels and "refine" not in disabled)
+
+
 def _color_error_tables(eci, ep0, ep1, counts, cw, profile: int):
     if profile >= HDR_RGB_LDR_A:
         return fmts.color_error_tables_hdr(eci, ep0, ep1, counts, cw,
@@ -297,12 +313,14 @@ def _color_error_tables(eci, ep0, ep1, counts, cw, profile: int):
 
 def _hdr_rounds_1plane(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
                        pot, ep0, ep1, C: int, R: int, u8_mask: bool,
-                       cw: tuple, profile: int, use_kernels: bool):
+                       cw: tuple, profile: int, use_kernels: bool,
+                       refine: bool):
     """The R rounds of a 1-plane HDR trial (JAX trial.py:624-659): one
     bootstrap round (K5 with no realign) for the first infill, then per
     round the least-squares refit with the RGBO vector, the pack of both
     arms, the decode and one K5 round. Arguments and outputs are those of
-    ``refine.trial1_refine``."""
+    ``refine.trial1_refine``; with ``refine`` False the rounds run their
+    plain version (its lookups on K8 unless ``use_kernels`` is False)."""
     NC, W = wgrid0.shape
     pc = fmt_req.shape[1]
     dev = texels.device
@@ -316,7 +334,7 @@ def _hdr_rounds_1plane(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
     def rnd(grid, alive, d0, d1, ncolors):
         return refine_ops.refine_round_1plane(
             pt, grid, dm, wq, alive, d0, d1, texels, pot, C, ncolors,
-            u8_mask, cw, use_kernel=use_kernels)
+            u8_mask, cw, use_kernel=refine, gathers=use_kernels)
 
     zero = torch.zeros((NC, 4, 4), dtype=torch.int32, device=dev)
     undec = rnd(wgrid0, alive, zero, zero, 0)["undec"]
@@ -358,11 +376,12 @@ def _hdr_rounds_1plane(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
 def _hdr_rounds_2plane(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
                        texels, data_mean, ep0, ep1, C: int, R: int,
                        u8_mask: bool, cw: tuple, profile: int,
-                       use_kernels: bool):
+                       use_kernels: bool, refine: bool):
     """The R rounds of a 2-plane HDR trial (JAX trial.py:1192-1226): one
     K7 launch for both first infills, then per round the 2-plane refit
     with the RGBO vector, the pack, the decode and one K6 round. Arguments
-    and outputs are those of ``refine.trial2_refine``."""
+    and outputs are those of ``refine.trial2_refine``; with ``refine``
+    False the rounds run their plain version."""
     NC, W = wg1_0.shape
     N = ep0.shape[0]
     dev = texels.device
@@ -377,7 +396,7 @@ def _hdr_rounds_2plane(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
     def rnd(g1, g2, alive, d0, d1, ncolors):
         return refine_ops.refine_round_2plane(
             pt, g1, g2, dm, wq, alive, p2c, d0, d1, texels, C, ncolors,
-            u8_mask, cw, use_kernel=use_kernels)
+            u8_mask, cw, use_kernel=refine, gathers=use_kernels)
 
     zero = torch.zeros((NC, 4), dtype=torch.int32, device=dev)
     boot = rnd(wg1_0, wg2_0, alive, zero, zero, 0)
@@ -411,7 +430,8 @@ def _hdr_rounds_2plane(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
 
 
 def trial1_records(st, pt, cfg, profile: int, u8_mask: bool, quant_limit,
-                   ext_valid, pot=None, counts=None, use_kernels: bool = True):
+                   ext_valid, pot=None, counts=None, use_kernels: bool = True,
+                   disabled: frozenset = frozenset()):
     """Per-mode search + candidate refinement of a 1-plane trial over one
     candidate partitioning per block (trial.py:304-757). Returns the
     per-record tensors that apply_records_1plane consumes, in reference
@@ -421,13 +441,14 @@ def trial1_records(st, pt, cfg, profile: int, u8_mask: bool, quant_limit,
     (``pass_tables``; pt.pc partitions) on the texels' device; quant_limit
     (N,) int32; ext_valid (N,) bool lanes that may refine; pot (N, T)
     int32 partition of each texel and counts (N, 4) texels per partition
-    (None for one partition).
+    (None for one partition); use_kernels/disabled: see ``_switches``.
     """
     texels = st["texels"]
     dev = texels.device
     N, T, _ = texels.shape
     pc = pt.pc
     cw = effective_cw(cfg)
+    k_msearch, k_refine = _switches(use_kernels, disabled)
     if pot is None:
         pot = torch.zeros((N, T), dtype=torch.int32, device=dev)
         counts = torch.full((N, 1), T, dtype=torch.int32, device=dev)
@@ -459,7 +480,7 @@ def trial1_records(st, pt, cfg, profile: int, u8_mask: bool, quant_limit,
         pt, ei["weights"].contiguous(), ei["weight_error_scale"].contiguous(),
         min_wt_cutoff.contiguous(), max_wq.contiguous(),
         comb_err.contiguous(), comb_fmt.contiguous(), C,
-        use_kernel=use_kernels)
+        use_kernel=k_msearch)
     valid_f = (ms["valid"] & ext_valid[:, None]).reshape(NC).contiguous()
     wgrid0 = ms["uq"].reshape(NC, -1).contiguous()
 
@@ -471,9 +492,10 @@ def trial1_records(st, pt, cfg, profile: int, u8_mask: bool, quant_limit,
             texels.contiguous(), pot.to(torch.int32).contiguous(),
             ep0.contiguous(), ep1.contiguous(), C, R, u8_mask, cw, profile)
     if profile >= HDR_RGB_LDR_A:
-        rf = _hdr_rounds_1plane(*args, use_kernels)
+        rf = _hdr_rounds_1plane(*args, use_kernels, k_refine)
     else:
-        rf = refine_ops.trial1_refine(*args, use_kernel=use_kernels)
+        rf = refine_ops.trial1_refine(*args, use_kernel=k_refine,
+                                      gathers=use_kernels)
 
     def rec(name):
         return _records(rf[name][0], rf[name], N, C)
@@ -544,18 +566,21 @@ COMP_ORDER = (3, 2, 1, 0)
 
 
 def trial2_records(st, pt, cfg, profile: int, u8_mask: bool, quant_limit,
-                   ext_valid, use_kernels: bool = True):
+                   ext_valid, use_kernels: bool = True,
+                   disabled: frozenset = frozenset()):
     """The four 2-plane trials of each block, folded into one (4N,) batch
     in component order 3, 2, 1, 0 (trial.py:856-1315, fold_all=True).
 
     pt: the "two" pass tables; quant_limit (N,) int32; ext_valid (N, 4)
-    bool per block and component in COMP_ORDER. Returns records shaped
+    bool per block and component in COMP_ORDER; use_kernels/disabled: see
+    ``_switches``. Returns records shaped
     (4N, C*K, ...), row c*N + n for component COMP_ORDER[c] of block n.
     """
     texels = st["texels"]
     dev = texels.device
     N0, T, _ = texels.shape
     cw = effective_cw(cfg)
+    k_msearch, k_refine = _switches(use_kernels, disabled)
     pmask = torch.ones((N0, T, 1), device=dev)
     counts = torch.full((N0, 1), T, dtype=torch.int32, device=dev)
     ua = st["uses_alpha"]
@@ -608,7 +633,7 @@ def trial2_records(st, pt, cfg, profile: int, u8_mask: bool, quant_limit,
         max_wq.contiguous(), be[:, 0].contiguous(), fm[:, 0].contiguous(),
         C, wei2=ei2["weights"].contiguous(),
         wes2=ei2["weight_error_scale"].contiguous(),
-        mcut2=mcut2.contiguous(), use_kernel=use_kernels)
+        mcut2=mcut2.contiguous(), use_kernel=k_msearch)
     valid_f = (ms["valid"] & ext_valid[:, None]).reshape(NC).contiguous()
     wg1 = ms["uq"].reshape(NC, -1).contiguous()
     wg2 = ms["uq2"].reshape(NC, -1).contiguous()
@@ -622,9 +647,10 @@ def trial2_records(st, pt, cfg, profile: int, u8_mask: bool, quant_limit,
             ep0m[:, 0].contiguous(), ep1m[:, 0].contiguous(), C, R, u8_mask,
             cw, profile)
     if profile >= HDR_RGB_LDR_A:
-        rf = _hdr_rounds_2plane(*args, use_kernels)
+        rf = _hdr_rounds_2plane(*args, use_kernels, k_refine)
     else:
-        rf = refine_ops.trial2_refine(*args, use_kernel=use_kernels)
+        rf = refine_ops.trial2_refine(*args, use_kernel=k_refine,
+                                      gathers=use_kernels)
 
     K = R + 1
     fmt4 = torch.zeros((R, NC, 4), dtype=torch.int32, device=dev)

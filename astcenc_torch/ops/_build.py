@@ -79,9 +79,9 @@ def build_key(name: str) -> str:
 
 
 #: The kernel sources: K1 msearch, K2 refine, K3 refine2, K4 psearch, K5
-#: refine_round, K6 and K7 refine_round2, K9 quant_lookup.
+#: refine_round, K6 and K7 refine_round2, K8 row_gather, K9 quant_lookup.
 KERNELS = ("msearch", "refine", "refine2", "psearch", "refine_round",
-           "refine_round2", "quant_lookup")
+           "refine_round2", "row_gather", "quant_lookup")
 
 
 def _lib_path(name: str) -> str:

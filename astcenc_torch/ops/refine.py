@@ -37,7 +37,13 @@ latency bound, and rely on many resident warps to hide that latency.
 
 The plain versions are the XLA refine loops of ``trial.py:660-721``
 (1 plane) and ``:1227-1288`` (2 planes), built on ``recompute``,
-``color_pack`` and ``realign``.
+``color_pack`` and ``realign``. They are also the encoder's path when the
+``refine`` family is switched off (``gather.kernel_enabled``): there the
+routers' ``gathers=True`` sends their table gathers to the card, the
+realign's prev/next lookups to kernel K8 and the pack's quantizer lookups
+to K9, as the JAX package's XLA branches run them on the TPU. With the
+default (``use_kernel=False`` of a plain version) they are plain
+throughout.
 """
 
 from __future__ import annotations
@@ -149,7 +155,7 @@ def pack_partitions(pack, cq, cqm, pc: int):
 
 def trial1_refine_plain(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
                         pot, ep0, ep1, C: int, R: int, u8_mask: bool,
-                        cw: tuple, profile: int):
+                        cw: tuple, profile: int, use_kernel: bool = False):
     """R refinement rounds for N*C lanes of a 1-plane trial, pc = 1..4.
 
     Args:
@@ -158,6 +164,7 @@ def trial1_refine_plain(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
       fmt_req: (NC, pc) int32; alive: (NC,) bool; texels: (N, T, 4)
       float32; pot: (N, T) int32 partition of each texel; ep0/ep1:
       (N, pc, 4) ideal endpoints; lane i belongs to block i // C.
+      use_kernel: gathers through K8 and K9 for CUDA tensors.
 
     Returns dict fmt (R, NC, 4), vals (R, NC, 4, 8), useq (R, NC), match
     (R, NC) bool, wpost (R, NC, W) int32; err_pre (NC,) and err_post
@@ -190,7 +197,7 @@ def trial1_refine_plain(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
             f, v = cpack.pack_color_endpoints_ldr(
                 e0.reshape(NC * pc, 4), e1.reshape(NC * pc, 4),
                 rc["rgbs"].reshape(NC * pc, 4), fmt_req.reshape(NC * pc),
-                q.repeat_interleave(pc), use_kernel=False)
+                q.repeat_interleave(pc), use_kernel=use_kernel)
             return f.reshape(NC, pc), v.reshape(NC, pc, 8)
 
         fmt4, vals4, use_q, matched = pack_partitions(pack, cq, cqm, pc)
@@ -203,7 +210,7 @@ def trial1_refine_plain(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
                 tex, wgrid, Mint, ep0_t, ep1_t, cw, u8_mask), big)
         new_w, adjusted = realign_ops.realign_decimated_grouped(
             wgrid, tex, ep0_t, ep1_t, cw, pn_rows, Mf32, incid, wvalid,
-            color_of, pt.ncolors)
+            color_of, pt.ncolors, use_kernel=use_kernel)
         wgrid = torch.where(alive[:, None], new_w, wgrid)
         post = trial_error_1plane(tex, wgrid, Mint, ep0_t, ep1_t, cw, u8_mask)
         out["err_post"].append(torch.where(alive, post, big))
@@ -220,7 +227,8 @@ def trial1_refine_plain(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
 
 def trial2_refine_plain(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
                         texels, data_mean, ep0, ep1, C: int, R: int,
-                        u8_mask: bool, cw: tuple, profile: int):
+                        u8_mask: bool, cw: tuple, profile: int,
+                        use_kernel: bool = False):
     """R refinement rounds for N*C lanes of a 2-plane, 1-partition trial.
 
     Args:
@@ -229,7 +237,8 @@ def trial2_refine_plain(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
       plane-2 component; texels: (N0, T, 4) and data_mean (N0, 4), where
       block b reads texel row b % N0 (the four plane-2 components of a
       block are four blocks); ep0/ep1: (N, 4) ideal endpoints; lane i
-      belongs to block i // C.
+      belongs to block i // C; use_kernel: gathers through K8 and K9 for
+      CUDA tensors.
 
     Returns dict fmt (R, NC), vals (R, NC, 8), w1post/w2post (R, NC, W)
     int32; err_pre (NC,) and err_post (R, NC) float32, alive-masked.
@@ -256,7 +265,7 @@ def trial2_refine_plain(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
             tex, u1, u2, p2c_f, cw, mean, e0, e1)
         e0, e1 = rc["ep0"], rc["ep1"]
         fmt, v = cpack.pack_color_endpoints_ldr(e0, e1, rc["rgbs"], fmt_req,
-                                                cq, use_kernel=False)
+                                                cq, use_kernel=use_kernel)
         e0i, e1i = _decode(profile, fmt[:, None], v[:, None])
         e0i, e1i = e0i[:, 0], e1i[:, 0]
         if r == 0:
@@ -266,10 +275,10 @@ def trial2_refine_plain(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
         ep1_t = e1i[:, None, :].expand_as(tex)
         nw1, adj1 = realign_ops.realign_decimated_grouped(
             wg1, tex, ep0_t, ep1_t, cw, pn_rows, Mf32, incid, wvalid,
-            color_of, pt.ncolors, plane_mask=p2lanes)
+            color_of, pt.ncolors, plane_mask=p2lanes, use_kernel=use_kernel)
         nw2, adj2 = realign_ops.realign_decimated_grouped(
             wg2, tex, ep0_t, ep1_t, cw, pn_rows, Mf32, incid, wvalid,
-            color_of, pt.ncolors, plane_mask=~p2lanes)
+            color_of, pt.ncolors, plane_mask=~p2lanes, use_kernel=use_kernel)
         wg1 = torch.where(alive[:, None], nw1, wg1)
         wg2 = torch.where(alive[:, None], nw2, wg2)
         post = trial_error_2plane(tex, wg1, wg2, p2c_f, Mint, e0i, e1i, cw,
@@ -423,7 +432,7 @@ def trial2_refine_cuda(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
 
 def refine_round_1plane_plain(pt, wgrid, dm, wq, alive, ep0, ep1, texels,
                               pot, C: int, ncolors: int, u8_mask: bool,
-                              cw: tuple):
+                              cw: tuple, use_kernel: bool = False):
     """One 1-plane round (JAX trial.py:675-713 without the refit and
     pack) for NC lanes; lane i belongs to block i // C.
 
@@ -431,7 +440,8 @@ def refine_round_1plane_plain(pt, wgrid, dm, wq, alive, ep0, ep1, texels,
       wgrid: (NC, W) int32 grids; dm/wq: (NC,) int32; alive: (NC,) bool;
       ep0/ep1: (NC, 4, 4) int32 decoded endpoints by partition and
       channel; texels: (N, T, 4) float32; pot: (N, T) int32 partition of
-      each texel; ncolors: parity classes to realign (0: bootstrap).
+      each texel; ncolors: parity classes to realign (0: bootstrap);
+      use_kernel: the realign's lookups through K8 for CUDA tensors.
 
     Returns dict grid (NC, W) int32 (realigned where alive), adjusted
     (NC,) bool, undec (NC, T) float32 infill of grid, err_pre and
@@ -450,7 +460,7 @@ def refine_round_1plane_plain(pt, wgrid, dm, wq, alive, ep0, ep1, texels,
     if ncolors:
         new_w, adj = realign_ops.realign_decimated_grouped(
             wgrid, tex, ep0_t, ep1_t, cw, pn_rows, Mf32, incid, wvalid,
-            color_of, ncolors)
+            color_of, ncolors, use_kernel=use_kernel)
         grid = torch.where(alive[:, None], new_w, wgrid)
         adjusted = adj & alive
         err_post = trial_error_1plane(tex, grid, Mint, ep0_t, ep1_t, cw,
@@ -463,7 +473,7 @@ def refine_round_1plane_plain(pt, wgrid, dm, wq, alive, ep0, ep1, texels,
 
 def refine_round_2plane_plain(pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1,
                               texels, C: int, ncolors: int, u8_mask: bool,
-                              cw: tuple):
+                              cw: tuple, use_kernel: bool = False):
     """One 2-plane, 1-partition round (JAX trial.py:1237-1282 without the
     refit and pack), or with ncolors == 0 the bootstrap infills alone.
 
@@ -471,7 +481,8 @@ def refine_round_2plane_plain(pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1,
       wg1/wg2: (NC, W) int32 grids of both planes; dm/wq: (NC,) int32;
       alive: (NC,) bool; p2c: (N,) int32 plane-2 component per block;
       ep0/ep1: (NC, 4) int32 decoded endpoints; texels: (N0, T, 4), block
-      b reading row b % N0; lane i belongs to block i // C.
+      b reading row b % N0; lane i belongs to block i // C; use_kernel:
+      the realign's lookups through K8 for CUDA tensors.
 
     Returns dict grid1/grid2 (NC, W), adjusted (NC,) bool, undec1/undec2
     (NC, T) and err_pre/err_post (NC,); the bootstrap returns undec1 and
@@ -496,10 +507,10 @@ def refine_round_2plane_plain(pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1,
     ep1_t = e1[:, None, :].expand_as(tex)
     nw1, adj1 = realign_ops.realign_decimated_grouped(
         wg1, tex, ep0_t, ep1_t, cw, pn_rows, Mf32, incid, wvalid, color_of,
-        ncolors, plane_mask=p2lanes)
+        ncolors, plane_mask=p2lanes, use_kernel=use_kernel)
     nw2, adj2 = realign_ops.realign_decimated_grouped(
         wg2, tex, ep0_t, ep1_t, cw, pn_rows, Mf32, incid, wvalid, color_of,
-        ncolors, plane_mask=~p2lanes)
+        ncolors, plane_mask=~p2lanes, use_kernel=use_kernel)
     a = alive[:, None]
     nw1 = torch.where(a, nw1, wg1)
     nw2 = torch.where(a, nw2, wg2)
@@ -641,52 +652,57 @@ def refine_round_2plane_cuda(pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1,
             "err_post": err[1]}
 
 
-def _route(texels, use_kernel, cuda_fn, plain_fn, args):
+def _route(texels, use_kernel, cuda_fn, plain_fn, args, gathers):
     if texels.is_cuda and use_kernel:
         return cuda_fn(*args)
     if not texels.is_cuda and texels.device.type != "cpu":
         raise ValueError(f"unsupported device {texels.device}")
-    return plain_fn(*args)
+    return plain_fn(*args, use_kernel=gathers)
 
 
 def trial1_refine(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels, pot,
                   ep0, ep1, C: int, R: int, u8_mask: bool, cw: tuple,
-                  profile: int, use_kernel: bool = True):
+                  profile: int, use_kernel: bool = True,
+                  gathers: bool = False):
     """1-plane refinement rounds: kernel K2 for CUDA tensors, the plain
     version for CPU tensors. ``use_kernel=False`` runs the plain version
-    anywhere."""
+    anywhere; ``gathers`` sends the plain version's lookups to K8 and K9
+    for CUDA tensors (the refine-off path)."""
     return _route(texels, use_kernel, trial1_refine_cuda, trial1_refine_plain,
                   (pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels, pot,
-                   ep0, ep1, C, R, u8_mask, cw, profile))
+                   ep0, ep1, C, R, u8_mask, cw, profile), gathers)
 
 
 def trial2_refine(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c, texels,
                   data_mean, ep0, ep1, C: int, R: int, u8_mask: bool,
-                  cw: tuple, profile: int, use_kernel: bool = True):
+                  cw: tuple, profile: int, use_kernel: bool = True,
+                  gathers: bool = False):
     """2-plane refinement rounds: kernel K3 for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors; ``gathers`` as for ``trial1_refine``."""
     return _route(texels, use_kernel, trial2_refine_cuda, trial2_refine_plain,
                   (pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c, texels,
-                   data_mean, ep0, ep1, C, R, u8_mask, cw, profile))
+                   data_mean, ep0, ep1, C, R, u8_mask, cw, profile), gathers)
 
 
 def refine_round_1plane(pt, wgrid, dm, wq, alive, ep0, ep1, texels, pot,
                         C: int, ncolors: int, u8_mask: bool, cw: tuple,
-                        use_kernel: bool = True):
+                        use_kernel: bool = True, gathers: bool = False):
     """One 1-plane round: kernel K5 for CUDA tensors, the plain version for
-    CPU tensors."""
+    CPU tensors; ``gathers`` sends the plain version's realign lookups to
+    K8 for CUDA tensors."""
     return _route(texels, use_kernel, refine_round_1plane_cuda,
                   refine_round_1plane_plain,
                   (pt, wgrid, dm, wq, alive, ep0, ep1, texels, pot, C,
-                   ncolors, u8_mask, cw))
+                   ncolors, u8_mask, cw), gathers)
 
 
 def refine_round_2plane(pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1, texels,
                         C: int, ncolors: int, u8_mask: bool, cw: tuple,
-                        use_kernel: bool = True):
+                        use_kernel: bool = True, gathers: bool = False):
     """One 2-plane round: kernel K6 (K7 for the bootstrap, ncolors == 0)
-    for CUDA tensors, the plain version for CPU tensors."""
+    for CUDA tensors, the plain version for CPU tensors; ``gathers`` as
+    for ``refine_round_1plane``."""
     return _route(texels, use_kernel, refine_round_2plane_cuda,
                   refine_round_2plane_plain,
                   (pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1, texels, C,
-                   ncolors, u8_mask, cw))
+                   ncolors, u8_mask, cw), gathers)

@@ -9,9 +9,9 @@ non-zero and never prints the last line:
    limit as nvidia-smi reports them;
 2. build: compile kernels K1 (mode search), K2 (1-plane refinement), K3
    (2-plane refinement), K4 (partition line errors), K5 (one 1-plane HDR
-   round), K6 and K7 (one 2-plane HDR round, its bootstrap) and K9 (colour
-   quantizer lookup) from astcenc_torch/csrc with nvcc for sm_90a, one nvcc
-   per source, started together;
+   round), K6 and K7 (one 2-plane HDR round, its bootstrap), K8 (per-row
+   table gather) and K9 (colour quantizer lookup) from astcenc_torch/csrc
+   with nvcc for sm_90a, one nvcc per source, started together;
 3. kernels: capture the real inputs of every kernel form from a 512x512
    main-path encode (K1 with 1 and 2 planes and 2 and 3 partitions, K2 at
    1-3 partitions, K3, K4 at 2 and 3 partitions) and hold each kernel
@@ -40,11 +40,28 @@ non-zero and never prints the last line:
    counts by kind and by endpoint format, launch counts; then a profiled
    encode of its central 1024x1024 quarter;
 9. HDR crop: a 256x256 crop of it at -cH through the kernels and through
-   the plain versions, >= 99% of blocks identical, HDR alpha present.
+   the plain versions, >= 99% of blocks identical, HDR alpha present;
+10. K8: capture the first realign lookup of a 512x512 main-path encode
+    with ASTC_DISABLE_KERNELS=refine, and make a seeded float32 (16384,
+    300) table holding NaN payloads, +-Inf, -0.0 and denormals with 200
+    indices per row, some out of range; hold K8 against its plain version
+    bit for bit and time both and torch.gather;
+11. LDR refine-off path: the main-path texture with
+    ASTC_DISABLE_KERNELS=refine (the plain refinement, its gathers on K8
+    and K9): encode rate, PSNR, share of blocks identical to phase 5's
+    fused encode (>= 90%, PSNR within 0.05 dB), launches (K2 and K3 none,
+    K8 some);
+12. the same with msearch,refine on the central 1024x1024 quarter,
+    against the fused encode of that quarter (K1 none);
+13. HDR refine-off path: phase 8's profiled 1024x1024 centre at -ch with
+    refine off, against the fused blocks of that profiled encode (mPSNR
+    within 0.05 dB, >= 90% identical; K5-K7 none, K8 some).
 
-The lines before the last are the kernel table as JSON (K1-K4 launches
-counted on the LDR main path, K5-K9 on the HDR path) and the nvidia-smi
-line; the last line is {"ok": true, "device": {...}}.
+The fused main paths (phases 5 and 8) must launch K8 no time, as on the
+TPU. The lines before the last are the kernel table as JSON (K1-K4
+launches counted on the LDR main path, K5-K7 and K9 on the HDR path, K8
+on the LDR refine-off path) and the nvidia-smi line; the last line is
+{"ok": true, "device": {...}}.
 
 Each kernel's ``bound_ms`` is the larger of its bytes (each input tensor
 read once, each output written once) over 3.35 TB/s and its float
@@ -52,12 +69,19 @@ operations over 67 TFLOP/s (H100 SXM, float32 without tensor cores). The
 operation counts are models of the kernels' loops, per texel and weight,
 written out in the ``_ops_*`` functions; where the work depends on the
 data (lanes that stop refining), they count what the captured inputs need.
+``library_ms`` is the time of one PyTorch call computing a kernel's
+function on the same inputs, where one exists: ``torch.gather`` for K8 and
+one advanced-indexing call into the packed (17, 256) table for K9 (the
+clamp and the int64 conversion of their indices made before the timed
+call); null for the others.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -147,6 +171,21 @@ def _capture(modules):
         for mod, name in saved:
             setattr(mod, name, orig[name])
     return seen, restore
+
+
+@contextlib.contextmanager
+def _disabled(families: str):
+    """ASTC_DISABLE_KERNELS=families inside the block (compress_image reads
+    it once per call)."""
+    old = os.environ.get("ASTC_DISABLE_KERNELS")
+    os.environ["ASTC_DISABLE_KERNELS"] = families
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["ASTC_DISABLE_KERNELS"]
+        else:
+            os.environ["ASTC_DISABLE_KERNELS"] = old
 
 
 def _nbytes(*ts) -> int:
@@ -303,6 +342,7 @@ def _profile(run):
                      ("K5_ms", "refine_round_kernel"),
                      ("K6_ms", "refine_round2_kernel"),
                      ("K7_ms", "refine_boot2_kernel"),
+                     ("K8_ms", "row_gather_kernel"),
                      ("K9_ms", "quant_lookup_kernel")):
         out[tag] = sum(r[0] for r in rows if pat in r[1])
     out["top"] = [[k[:60], round(ms, 3), n] for ms, k, n in rows[:10]]
@@ -313,6 +353,7 @@ def _reset(msearch, refine, psearch, gather):
     msearch.launches = refine.launches = refine.launches2 = 0
     refine.launches_round1 = refine.launches_round2 = 0
     refine.launches_boot2 = psearch.launches = gather.launches = 0
+    gather.launches_rows = 0
 
 
 def _counts(msearch, refine, psearch, gather):
@@ -321,6 +362,7 @@ def _counts(msearch, refine, psearch, gather):
             "refine_round": refine.launches_round1,
             "refine_round2": refine.launches_round2,
             "refine_boot2": refine.launches_boot2,
+            "row_gather": gather.launches_rows,
             "quant_lookup": gather.launches}
 
 
@@ -463,8 +505,8 @@ def main() -> int:
     else:
         how = f"cached libraries loaded in {build_s:.1f} s"
     print(f"build: K1 msearch.cu, K2 refine.cu, K3 refine2.cu, K4 psearch.cu, "
-          f"K5 refine_round.cu, K6 and K7 refine_round2.cu, K9 "
-          f"quant_lookup.cu {how}", flush=True)
+          f"K5 refine_round.cu, K6 and K7 refine_round2.cu, K8 row_gather.cu, "
+          f"K9 quant_lookup.cu {how}", flush=True)
 
     cfg = api.config_init(api.Profile.LDR, 6, 6, 1, api.Quality.MEDIUM, 0)
     ctx = api.context_alloc(cfg, device=dev)
@@ -483,20 +525,25 @@ def main() -> int:
     missing = want_forms - set(seen)
     assert not missing, f"forms not captured: {sorted(missing)}"
     stats = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0.0,
-                 "max_abs_err": 0.0}
-             for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K9")}
+                 "max_abs_err": 0.0, "library_ms": None}
+             for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9")}
 
-    def account(kern, form, ms, plain_ms, nbytes, ops, mae, detail):
+    def account(kern, form, ms, plain_ms, nbytes, ops, mae, detail,
+                library_ms=None):
         s = stats[kern]
         s["ms"] += ms
         s["plain_ms"] += plain_ms
         s["bytes"] += nbytes
         s["ops"] += ops
         s["max_abs_err"] = max(s["max_abs_err"], mae)
+        lib = ""
+        if library_ms is not None:
+            s["library_ms"] = (s["library_ms"] or 0.0) + library_ms
+            lib = f", library {library_ms:.3f} ms"
         bms, by = _bound(nbytes, ops)
         print(f"kernels: {kern} {form}: {json.dumps(detail)}; kernel "
-              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms "
-              f"({by})", flush=True)
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms{lib}, bound {bms:.4f} "
+              f"ms ({by})", flush=True)
 
     for form in ("pc1", "two", "pc2", "pc3"):
         a, kw = seen[("K1", form)]
@@ -633,6 +680,7 @@ def main() -> int:
     launches = _counts(*counters)
     ldr_kernels = ("msearch", "refine", "refine2", "psearch")
     assert all(launches[k] > 0 for k in ldr_kernels), launches
+    assert launches["row_gather"] == 0, launches
     side = -(-SIZE // 6)
     assert blocks.shape == (side * side, 16), blocks.shape
     t0 = time.perf_counter()
@@ -739,18 +787,24 @@ def main() -> int:
                 for u in ("undec1", "undec2")),
             {"lanes": lanes, "infill_rel_max": urel})
 
+    lohi = gather._tables(dev)
+    packed = lohi[0] | (lohi[1] << 8)                 # (17, 256)
     for form in ("first", "k72"):
         q, v = seen[("K9", form)]
         got = gather.quant_lookup_cuda(q, v)
         want = gather.quant_lookup_plain(q, v)
+        qi = q.clamp(0, 16).long()[:, None]
+        vi = v.clamp(0, 255).long()
         torch.cuda.synchronize()
         assert bool((got == want).all()), f"K9 {form} differs"
+        assert bool((packed[qi, vi] == want).all()), f"K9 {form} library"
         account("K9", form, _time_ms(lambda: gather.quant_lookup_cuda(q, v),
                                      20),
                 _time_ms(lambda: gather.quant_lookup_plain(q, v), 20),
                 _nbytes(q, v, got) + 2 * 17 * 256 * 4, 4.0 * v.numel(), 0.0,
                 {"rows": v.shape[0], "values": v.shape[1],
-                 "bit_exact": True})
+                 "bit_exact": True},
+                library_ms=_time_ms(lambda: packed[qi, vi], 20))
 
     # --- 8. the HDR path ----------------------------------------------------
     img_h = testdata.synthetic_hdr_image(HDR_SIZE, HDR_SIZE, args.seed,
@@ -766,6 +820,7 @@ def main() -> int:
     hdr_kernels = ("msearch", "psearch", "refine_round", "refine_round2",
                    "refine_boot2", "quant_lookup")
     assert all(launches_h[k] > 0 for k in hdr_kernels), launches_h
+    assert launches_h["row_gather"] == 0, launches_h
     t0 = time.perf_counter()
     again = api.compress_image(ctx_h, img_h)
     torch.cuda.synchronize()
@@ -792,7 +847,8 @@ def main() -> int:
     # texture's 800,000 device operations take minutes to tabulate.
     q = HDR_SIZE // 4
     img_p = np.ascontiguousarray(img_h[q:3 * q, q:3 * q])
-    prof_h = _profile(lambda: api.compress_image(ctx_h, img_p))
+    held = []                  # the fused blocks of the centre, for phase 13
+    prof_h = _profile(lambda: held.append(api.compress_image(ctx_h, img_p)))
     print(f"{at()} HDR profile ({2 * q}x{2 * q} centre): "
           f"{json.dumps(prof_h)} | {smi}", flush=True)
 
@@ -816,6 +872,137 @@ def main() -> int:
           f"{metrics.mpsnr(d_p, src_c):.4f} dB, blocks {json.dumps(kinds_c)}, "
           f"endpoint formats {json.dumps(fmts_c)}", flush=True)
 
+    # --- 10. K8 vs plain: a realign lookup and a table of float32 specials -
+    first = []
+    orig_rl = gather.row_lookup
+
+    def rl(rows, idx, *a, **kw):
+        if not first:
+            first.append((rows.clone(), idx.clone()))
+        return orig_rl(rows, idx, *a, **kw)
+
+    gather.row_lookup = rl
+    try:
+        with _disabled("refine"):
+            api.compress_image(ctx, img_c)
+    finally:
+        gather.row_lookup = orig_rl
+    assert first, "no realign lookup captured"
+    rng = np.random.RandomState(args.seed + 3)
+    tab = (rng.standard_normal((16384, 300)) * 1e3).astype(np.float32)
+    flat = tab.reshape(-1).view(np.uint32)
+    flat[rng.choice(flat.size, 8000, replace=False)] = np.tile(np.array(
+        [0x7FC00000, 0xFFC12345, 0x7F800001, 0x7FBFFFFF, 0x7F800000,
+         0xFF800000, 0x80000000, 0x00000001, 0x807FFFFF, 0x00400000],
+        np.uint32), 800)
+    ridx = rng.randint(-20, 320, (16384, 200)).astype(np.int32)
+    forms = {"realign": first[0],
+             "f32": (torch.from_numpy(tab).to(dev),
+                     torch.from_numpy(ridx).to(dev))}
+    for form, (rows, idx) in forms.items():
+        got = gather.row_lookup_cuda(rows, idx)
+        want = gather.row_lookup_plain(rows, idx)
+        B, K = idx.shape[0], idx.shape[-1]
+        V = rows.shape[1]
+        C = rows.shape[2] if rows.dim() == 3 else 1
+        ie = idx.clamp(0, V - 1).long()
+        if C > 1:
+            ie = ie[..., None].expand(-1, -1, C)
+        torch.cuda.synchronize()
+        same = bool((got.view(torch.int32) == want.view(torch.int32)).all())
+        assert same, f"K8 {form} differs"
+        lib = torch.gather(rows, 1, ie)
+        assert bool((lib.view(torch.int32) == want.view(torch.int32)).all())
+        # Device time alone (profiler), against the events' time per call,
+        # which also holds the host's time between launches.
+        dev_us = {k: _profile(lambda: [fn() for _ in range(20)])[
+            "device_busy_ms"] / 20 * 1e3 for k, fn in (
+                ("kernel", lambda: gather.row_lookup_cuda(rows, idx)),
+                ("library", lambda: torch.gather(rows, 1, ie)))}
+        account("K8", form, _time_ms(lambda: gather.row_lookup_cuda(rows, idx),
+                                     20),
+                _time_ms(lambda: gather.row_lookup_plain(rows, idx), 20),
+                _nbytes(rows, idx, got), 2.0 * B * K, 0.0,
+                {"rows": B, "entries": V, "indices": K, "words": C,
+                 "dtype": str(rows.dtype), "bit_exact": True,
+                 "device_us_per_call": dev_us},
+                library_ms=_time_ms(lambda: torch.gather(rows, 1, ie),
+                                    20))
+
+    # --- 11. the LDR refine-off path ------------------------------------
+    _reset(*counters)
+    t0 = time.perf_counter()
+    with _disabled("refine"):
+        blocks_r = api.compress_image(ctx, img)
+    torch.cuda.synchronize()
+    enc_r = time.perf_counter() - t0
+    launches_r = _counts(*counters)
+    assert launches_r["refine"] == 0 and launches_r["refine2"] == 0, \
+        launches_r
+    for k in ("msearch", "psearch", "row_gather", "quant_lookup"):
+        assert launches_r[k] > 0, launches_r
+    dec_r = api.decompress_image(ctx, blocks_r, SIZE, SIZE)[0]
+    assert dec_r.shape == img.shape and np.isfinite(dec_r).all()
+    psnr_r = _psnr(dec_r, img)
+    ident_r = float((blocks_r == blocks).all(1).mean())
+    assert ident_r >= 0.9 and abs(psnr_r - psnr) <= 0.05, (ident_r, psnr_r)
+    print(f"{at()} LDR refine-off path (ASTC_DISABLE_KERNELS=refine): "
+          f"{SIZE}x{SIZE}, encode {enc_r:.3f} s = "
+          f"{SIZE * SIZE / enc_r / 1e6:.4f} Mtexels/s, PSNR {psnr_r:.4f} dB "
+          f"(fused {psnr:.4f}), {ident_r:.6f} of blocks identical to the "
+          f"fused encode, launches {json.dumps(launches_r)} | {smi}",
+          flush=True)
+
+    # --- 12. msearch,refine off on the central quarter -------------------
+    q = SIZE // 4
+    img_q = np.ascontiguousarray(img[q:3 * q, q:3 * q])
+    fused_q = api.compress_image(ctx, img_q)
+    _reset(*counters)
+    t0 = time.perf_counter()
+    with _disabled("msearch,refine"):
+        blocks_q = api.compress_image(ctx, img_q)
+    torch.cuda.synchronize()
+    enc_q = time.perf_counter() - t0
+    launches_q = _counts(*counters)
+    assert all(launches_q[k] == 0 for k in ("msearch", "refine", "refine2")), \
+        launches_q
+    assert launches_q["row_gather"] > 0, launches_q
+    dq = [api.decompress_image(ctx, b, 2 * q, 2 * q)[0]
+          for b in (blocks_q, fused_q)]
+    psnr_q, psnr_qf = _psnr(dq[0], img_q), _psnr(dq[1], img_q)
+    ident_q = float((blocks_q == fused_q).all(1).mean())
+    assert ident_q >= 0.9 and abs(psnr_q - psnr_qf) <= 0.05, (ident_q, psnr_q)
+    print(f"{at()} LDR msearch,refine-off path: {2 * q}x{2 * q} centre, "
+          f"encode {enc_q:.3f} s = {4 * q * q / enc_q / 1e6:.4f} Mtexels/s, "
+          f"PSNR {psnr_q:.4f} dB (fused {psnr_qf:.4f}), {ident_q:.6f} of "
+          f"blocks identical to the fused encode, launches "
+          f"{json.dumps(launches_q)} | {smi}", flush=True)
+
+    # --- 13. the HDR refine-off path on phase 8's profiled centre --------
+    q = HDR_SIZE // 4
+    _reset(*counters)
+    t0 = time.perf_counter()
+    with _disabled("refine"):
+        blocks_hr = api.compress_image(ctx_h, img_p)
+    torch.cuda.synchronize()
+    enc_hr = time.perf_counter() - t0
+    launches_hr = _counts(*counters)
+    assert all(launches_hr[k] == 0 for k in
+               ("refine_round", "refine_round2", "refine_boot2")), launches_hr
+    assert launches_hr["row_gather"] > 0, launches_hr
+    src_p = img_p.astype(np.float32)
+    dh = [api.decompress_image(ctx_h, b, 2 * q, 2 * q, out_type="f32")[0]
+          for b in (blocks_hr, held[0])]
+    assert np.isfinite(dh[0]).all()
+    mp_r, mp_f = metrics.mpsnr(dh[0], src_p), metrics.mpsnr(dh[1], src_p)
+    ident_h = float((blocks_hr == held[0]).all(1).mean())
+    assert ident_h >= 0.9 and abs(mp_r - mp_f) <= 0.05, (ident_h, mp_r)
+    print(f"{at()} HDR refine-off path: {2 * q}x{2 * q} centre at -ch, encode "
+          f"{enc_hr:.3f} s = {4 * q * q / enc_hr / 1e6:.4f} Mtexels/s, mPSNR "
+          f"{mp_r:.4f} dB (fused {mp_f:.4f}), {ident_h:.6f} of blocks "
+          f"identical to the fused encode, launches "
+          f"{json.dumps(launches_hr)} | {smi}", flush=True)
+
     meta = {"K1": ("msearch", "astcenc_torch/csrc/msearch.cu",
                    "astcenc_tpu/ops/msearch_pallas.py:281"),
             "K2": ("refine", "astcenc_torch/csrc/refine.cu",
@@ -830,19 +1017,24 @@ def main() -> int:
                    "astcenc_tpu/ops/refine_pallas.py:1090"),
             "K7": ("refine_boot2", "astcenc_torch/csrc/refine_round2.cu",
                    "astcenc_tpu/ops/refine_pallas.py:1244"),
+            "K8": ("row_gather", "astcenc_torch/csrc/row_gather.cu",
+                   "astcenc_tpu/ops/gather_pallas.py:120"),
             "K9": ("quant_lookup", "astcenc_torch/csrc/quant_lookup.cu",
                    "astcenc_tpu/ops/gather_pallas.py:170")}
     kernels = []
     for kern, (name, src, rep) in meta.items():
         s = stats[kern]
         bms, by = _bound(s["bytes"], s["ops"])
-        # K1-K4 count on the LDR main path, K5-K9 on the HDR path.
-        n = (launches if kern in ("K1", "K2", "K3", "K4") else launches_h)
+        # K1-K4 count on the LDR main path, K5-K7 and K9 on the HDR path,
+        # K8 on the LDR refine-off path.
+        n = (launches if kern in ("K1", "K2", "K3", "K4")
+             else launches_r if kern == "K8" else launches_h)
+        assert n[name] > 0, f"{kern} was not launched on its path"
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": n[name],
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": bms,
-                        "bound_by": by, "library_ms": None})
+                        "bound_by": by, "library_ms": s["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

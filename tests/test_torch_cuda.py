@@ -1,5 +1,6 @@
-"""astcenc_torch kernels K1-K7 and K9 against their plain PyTorch versions
-on a CUDA card, and encodes through the kernels against the plain path.
+"""astcenc_torch kernels K1-K9 against their plain PyTorch versions on a
+CUDA card, and encodes through the kernels against the plain path and with
+the refinement kernels switched off.
 Needs a card (the kernels have no CPU build) and no jax, so it also runs
 where jax is missing:
 
@@ -397,3 +398,77 @@ def test_main_path_encode_kernels_match_plain(cuda_device):
     got = api.compress_image(ctx, img)
     want = tc.compress_image(ctx, img, use_kernels=False)
     assert (got == want).all(1).mean() >= 0.99
+
+
+@pytest.mark.parametrize("dtype,C", [("int32", None), ("int32", 2),
+                                     ("float32", None), ("float32", 2)])
+def test_row_gather_kernel_matches_plain(cuda_device, dtype, C):
+    """K8, bit for bit: out-of-range indices, and float32 NaN payloads,
+    +-Inf, -0.0 and denormals."""
+    from astcenc_torch.ops import gather
+    rng = np.random.RandomState(13)
+    shape = (3000, 300) + ((C,) if C else ())
+    if dtype == "int32":
+        rows = rng.randint(-2 ** 31, 2 ** 31, shape, dtype=np.int64).astype(
+            np.int32)
+    else:
+        rows = (rng.standard_normal(shape) * 1e3).astype(np.float32)
+        flat = rows.reshape(-1).view(np.uint32)
+        bits = np.array([0x7FC00000, 0xFFC12345, 0x7F800001, 0x7F800000,
+                         0xFF800000, 0x80000000, 0x00000001, 0x807FFFFF],
+                        np.uint32)
+        flat[rng.choice(flat.size, 800, replace=False)] = np.tile(bits, 100)
+    idx = rng.randint(-40, 340, (3000, 200)).astype(np.int32)
+    r = torch.from_numpy(rows).to(cuda_device)
+    i = torch.from_numpy(idx).to(cuda_device)
+    n0 = gather.launches_rows
+    got = gather.row_lookup(r, i)
+    assert gather.launches_rows == n0 + 1
+    want = gather.row_lookup_plain(r, i)
+    assert got.dtype == r.dtype and got.shape == want.shape
+    if dtype == "float32":
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    assert (got == want).all()
+
+
+def _refine_off(monkeypatch, ctx, img, value="refine"):
+    """Encode with ASTC_DISABLE_KERNELS=value; the blocks and the launches
+    of every kernel during that encode."""
+    from astcenc_torch.ops import gather, refine
+    mods = {"K1": (msearch, "launches"), "K2": (refine, "launches"),
+            "K3": (refine, "launches2"), "K4": (psearch, "launches"),
+            "K5": (refine, "launches_round1"),
+            "K6": (refine, "launches_round2"),
+            "K7": (refine, "launches_boot2"),
+            "K8": (gather, "launches_rows"), "K9": (gather, "launches")}
+    before = {k: getattr(m, a) for k, (m, a) in mods.items()}
+    with monkeypatch.context() as m:
+        m.setenv("ASTC_DISABLE_KERNELS", value)
+        blocks = api.compress_image(ctx, img)
+    return blocks, {k: getattr(m, a) - before[k]
+                    for k, (m, a) in mods.items()}
+
+
+def test_refine_off_ldr_crop_matches_fused(cuda_device, monkeypatch):
+    """A 256x256 synthetic texture at 6x6 -medium with the refinement
+    kernels off: no K2/K3 launch, K8 and K9 launched, the fused encode's
+    blocks."""
+    ctx = _medium_ctx(cuda_device)
+    img = testdata.synthetic_image(256, 256, 0, independent_alpha=True)
+    want = api.compress_image(ctx, img)
+    got, n = _refine_off(monkeypatch, ctx, img)
+    assert n["K2"] == 0 and n["K3"] == 0, n
+    assert n["K8"] > 0 and n["K9"] > 0 and n["K1"] > 0, n
+    assert (got == want).all()
+
+
+def test_refine_off_hdr_crop_matches_fused(cuda_device, monkeypatch):
+    """A 256x256 synthetic HDR texture at -ch with the refinement kernels
+    off: no K5-K7 launch, K8 launched, the fused encode's blocks."""
+    ctx = _hdr_ctx(cuda_device)
+    img = testdata.synthetic_hdr_image(256, 256, 0, independent_alpha=True)
+    want = api.compress_image(ctx, img)
+    got, n = _refine_off(monkeypatch, ctx, img)
+    assert n["K5"] == 0 and n["K6"] == 0 and n["K7"] == 0, n
+    assert n["K8"] > 0 and n["K9"] > 0, n
+    assert (got == want).all()
