@@ -17,7 +17,8 @@ off where the JAX package honours them (trial.py:431-433, :596-598,
 image (``gather.disabled_kernels``) and hands the set down as
 ``disabled``. With
 ``refine`` off the trials run the plain refinement (the JAX package's XLA
-branches), whose table gathers still go to kernels K8 and K9.
+branches), whose realign lookups still go to kernel K8 and whose colour
+packs to the colour pack kernel K9.
 """
 
 from __future__ import annotations

@@ -10,6 +10,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "common.cuh"
 
@@ -32,16 +33,31 @@ enum {
 // Colour quantization (astcenc_color_quantize.cpp), scalar per lane.
 // ---------------------------------------------------------------------------
 
+// The colour quant tables of one quant level: for each value 0..255 the
+// quantized values just below (lo) and above (hi) it. Plain loads, so the
+// tables may lie in global memory (K2, K3) or in shared memory.
 struct Quant {
   const int* lo;
   const int* hi;
   int qidx;
   // quant_color: round ties up.
-  __device__ int col(int v) const { return __ldg(hi + clampi(v, 0, 255)); }
+  __device__ int col(int v) const { return hi[clampi(v, 0, 255)]; }
   // quant_color with the residual bias.
   __device__ int res(int v, float vf) const {
     const int vc = clampi(v, 0, 255);
-    return (vf - (float)v >= -0.1f) ? __ldg(hi + vc) : __ldg(lo + vc);
+    return (vf - (float)v >= -0.1f) ? hi[vc] : lo[vc];
+  }
+};
+
+// The same tables packed as lo | hi << 8 in 16 bits (the colour pack kernel
+// stages all 17 levels in shared memory, 8.7 KB).
+struct Quant16 {
+  const uint16_t* t;
+  int qidx;
+  __device__ int col(int v) const { return t[clampi(v, 0, 255)] >> 8; }
+  __device__ int res(int v, float vf) const {
+    const int e = t[clampi(v, 0, 255)];
+    return (vf - (float)v >= -0.1f) ? e >> 8 : e & 0xFF;
   }
 };
 
@@ -98,7 +114,8 @@ __device__ bool in_range(const float* c) {
 }
 
 // Shared tail of try_quantize_rgb_delta[_blue_contract] (:321-485).
-__device__ bool rgb_delta(const Quant& q, const float* c0, const float* c1,
+template <class Q>
+__device__ bool rgb_delta(const Q& q, const float* c0, const float* c1,
                           bool want_negative, int* e0, int* e1) {
   int c0b2[4], c1d[4];
   for (int i = 0; i < 4; ++i) {
@@ -129,7 +146,8 @@ __device__ bool rgb_delta(const Quant& q, const float* c0, const float* c1,
 }
 
 // try_quantize_alpha_delta / the channel delta of luminance_alpha.
-__device__ bool chan_delta(const Quant& q, float v0, float v1, int* e0,
+template <class Q>
+__device__ bool chan_delta(const Q& q, float v0, float v1, int* e0,
                            int* e1) {
   const int v0a = rtn(v0) * 2;
   *e0 = q.col(v0a & 0xFF);
@@ -145,7 +163,8 @@ __device__ bool chan_delta(const Quant& q, float v0, float v1, int* e0,
 }
 
 // quantize_rgb (:169-192): accumulated 0.2 nudges until the sums order.
-__device__ void quantize_rgb(const Quant& q, const float* c0, const float* c1,
+template <class Q>
+__device__ void quantize_rgb(const Q& q, const float* c0, const float* c1,
                              int* o0, int* o1) {
   float a[4], b[4];
   for (int i = 0; i < 4; ++i) {
@@ -221,7 +240,8 @@ __device__ void consider(Trials& tr, const float* c0, const float* c1,
 }
 
 // FMT_RGB / FMT_RGBA with delta and blue-contract trials (:1933-2096).
-__device__ int pack_rgb_or_rgba(const Quant& q, const float* c0,
+template <class Q>
+__device__ int pack_rgb_or_rgba(const Q& q, const float* c0,
                                 const float* c1, bool with_alpha, int* vals) {
   Trials tr;
   const bool delta_ok_quant = q.qidx <= 18 - 4;
@@ -296,14 +316,11 @@ __device__ int pack_rgb_or_rgba(const Quant& q, const float* c0,
   return tr.fmt;
 }
 
-// LDR pack_color_endpoints (:1909-2147) for one requested format.
-__device__ int pack_ldr(const int* lohi, const float* ep0, const float* ep1,
-                        const float* rgbs, int req_fmt, int quant_level,
-                        int* vals) {
-  Quant q;
-  q.qidx = clampi(quant_level - 4, 0, 16);
-  q.lo = lohi + q.qidx * 256;
-  q.hi = lohi + 17 * 256 + q.qidx * 256;
+// LDR pack_color_endpoints (:1909-2147) for one requested format, with the
+// tables of the row's quant level.
+template <class Q>
+__device__ int pack_ldr_q(const Q& q, const float* ep0, const float* ep1,
+                          const float* rgbs, int req_fmt, int* vals) {
   float c0[4], c1[4];
   for (int i = 0; i < 4; ++i) {
     c0[i] = clampf(ep0[i], 0.f, 65535.f) / 257.f;
@@ -363,6 +380,17 @@ __device__ int pack_ldr(const int* lohi, const float* ep0, const float* ep1,
       return FMT_LUMINANCE;
     }
   }
+}
+
+// pack_ldr_q with the (2, 17, 256) lo/hi tables in global memory (K2, K3).
+__device__ int pack_ldr(const int* lohi, const float* ep0, const float* ep1,
+                        const float* rgbs, int req_fmt, int quant_level,
+                        int* vals) {
+  Quant q;
+  q.qidx = clampi(quant_level - 4, 0, 16);
+  q.lo = lohi + q.qidx * 256;
+  q.hi = lohi + 17 * 256 + q.qidx * 256;
+  return pack_ldr_q(q, ep0, ep1, rgbs, req_fmt, vals);
 }
 
 // LDR unpack_color_endpoints (astcenc_color_unquantize.cpp:844-1023).

@@ -18,6 +18,8 @@ import subprocess
 import threading
 import time
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD = os.path.join(os.path.dirname(_PKG_DIR), "build")
@@ -47,6 +49,13 @@ def check(t, name: str, dtype, shape) -> None:
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def stream(device_index: int) -> int:
+    """The handle of the current CUDA stream of a device, for a launch: the
+    raw handle, without the ``torch.cuda.Stream`` object that
+    ``torch.cuda.current_stream()`` builds around it."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def ptr(t) -> ctypes.c_void_p:
@@ -79,9 +88,10 @@ def build_key(name: str) -> str:
 
 
 #: The kernel sources: K1 msearch, K2 refine, K3 refine2, K4 psearch, K5
-#: refine_round, K6 and K7 refine_round2, K8 row_gather, K9 quant_lookup.
+#: refine_round, K6 and K7 refine_round2, K8 row_gather, K9 color_pack (the
+#: colour pack, in place of the TPU's colour quantizer lookup).
 KERNELS = ("msearch", "refine", "refine2", "psearch", "refine_round",
-           "refine_round2", "row_gather", "quant_lookup")
+           "refine_round2", "row_gather", "color_pack")
 
 
 def _lib_path(name: str) -> str:

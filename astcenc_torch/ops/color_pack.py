@@ -1,40 +1,54 @@
-"""Encoder-side colour endpoint packing, LDR formats.
+"""Encoder-side colour endpoint packing, LDR formats, and the colour pack
+kernel.
 
 Port of ``astcenc_tpu/ops/color_pack.py::pack_color_endpoints_ldr`` (:615;
 reference astcenc_color_quantize.cpp:1909-2147): every delta and
 blue-contract variant is tried on the whole batch with validity masks and
 the best valid one is kept per element, in the reference's trial order and
 with its error tie breaks. Colours are in the 0..255 domain; quantization
-uses the unquant -> uquant lo/hi tie-break tables, looked up through
-``gather.quant_lookup`` (kernel K9 on the card).
+uses the unquant -> uquant lo/hi tie-break tables
+(``gather.quant_lookup_plain``).
+
+That is the plain version. On the card a pack call is one launch of the
+colour pack kernel (``csrc/color_pack.cu``, ``pack_cuda``), which replaces
+the TPU's colour quantizer lookup ``gather_pallas.py::_master_kernel``
+(:170): one thread per row runs the reference's scalar pack of the arm its
+requested format names, both the LDR arm here and the HDR arm of
+``color_pack_hdr``, with the lookup tables in shared memory.
+``pack_color_endpoints_ldr`` and ``color_pack_hdr.pack_color_endpoints``
+route to it.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from ..tables import ise
+from . import _build
 from . import color_unquant as cuq
 from . import gather
 
 _BIG = 1e30
 
+#: Launches of the colour pack kernel (the plain version does not count).
+launches = 0
+
 
 class _Q:
     """Per-row colour quant tables (qidx = quant level - QUANT_6), the
     counterpart of the JAX package's ``QuantQ``: each call looks up all its
-    values, (B, ...) for the B rows, in one call of ``gather.quant_lookup``
-    (kernel K9 for CUDA tensors unless ``use_kernel`` is False)."""
+    values, (B, ...) for the B rows, in one ``gather.quant_lookup_plain``."""
 
-    def __init__(self, qidx, use_kernel: bool = True):
+    def __init__(self, qidx):
         self.idx = qidx.to(torch.int32)
-        self.use_kernel = use_kernel
 
     def lookup(self, v):
         """(lo, hi) table values of v (B, ...) int."""
-        packed = gather.quant_lookup(self.idx, v.reshape(v.shape[0], -1),
-                                     self.use_kernel).reshape(v.shape)
+        packed = gather.quant_lookup_plain(
+            self.idx, v.reshape(v.shape[0], -1)).reshape(v.shape)
         return packed & 0xFF, packed >> 8
 
     def color(self, v):
@@ -45,6 +59,15 @@ class _Q:
         """quant_color with the residual bias (reference :108-125)."""
         lo, hi = self.lookup(v)
         return torch.where((vf - v.to(torch.float32)) >= -0.1, hi, lo)
+
+
+def div(x, d: float):
+    """x / d, the float32 quotient on every device. On CUDA tensors PyTorch
+    multiplies by the reciprocal when the divisor is a Python or CPU
+    scalar, which can miss the quotient by one bit; a divisor on the
+    tensor's own device divides, as the CPU, the JAX package and the colour
+    pack kernel do. (Powers of two need no such care.)"""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
 def _rtn(x):
@@ -324,17 +347,17 @@ def _pack_luminance_alpha(c0, c1, q: _Q):
     return fmt, torch.where(ok[:, None], dvals, vals)
 
 
-def pack_color_endpoints_ldr(ep0, ep1, rgbs, req_fmt, quant_level,
-                             use_kernel: bool = True):
-    """Batched LDR pack_color_endpoints (reference :1909-2147).
+def pack_color_endpoints_ldr_plain(ep0, ep1, rgbs, req_fmt, quant_level):
+    """Batched LDR pack_color_endpoints (reference :1909-2147), the plain
+    version of ``pack_color_endpoints_ldr``.
 
     ep0/ep1/rgbs: (B, 4) float32 in the 0..65535 domain; req_fmt (B,) int32
     requested format; quant_level (B,) absolute colour quant (>= QUANT_6).
     Returns (fmt (B,) int32, values (B, 8) int32 in 0..255).
     """
-    q = _Q(torch.clamp(quant_level - ise.QUANT_6, 0, 16), use_kernel)
-    c0 = torch.clamp(ep0, 0.0, 65535.0) / 257.0
-    c1 = torch.clamp(ep1, 0.0, 65535.0) / 257.0
+    q = _Q(torch.clamp(quant_level - ise.QUANT_6, 0, 16))
+    c0 = div(torch.clamp(ep0, 0.0, 65535.0), 257.0)
+    c1 = div(torch.clamp(ep1, 0.0, 65535.0), 257.0)
     B = ep0.shape[0]
     dev = ep0.device
     z8 = torch.zeros((B, 8), dtype=torch.int32, device=dev)
@@ -370,3 +393,84 @@ def pack_color_endpoints_ldr(ep0, ep1, rgbs, req_fmt, quant_level,
         out_fmt = torch.where(m, f, out_fmt)
         out_vals = torch.where(m[:, None], v, out_vals)
     return out_fmt.to(torch.int32), out_vals.to(torch.int32)
+
+
+_pack_fn = None
+
+
+def _bind_pack():
+    """astc_color_pack of the built library, its argument types set once."""
+    global _pack_fn
+    lib = _build.load("color_pack")
+    fn = lib.astc_color_pack
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 3)
+    lib.astc_error_string.restype = ctypes.c_char_p
+    lib.astc_error_string.argtypes = [ctypes.c_int]
+    _pack_fn = fn
+    return fn
+
+
+def pack_cuda(profile: int, ep0, ep1, rgbs, rgbo, req_fmt, quant_level):
+    """Launch the colour pack kernel on one pack call: the profile-aware
+    pack of ``color_pack_hdr.pack_color_endpoints_plain`` (the LDR arm
+    alone for profiles 0 and 1, where rgbo may be None). ep0, ep1, rgbs,
+    rgbo (B, 4) float32 and req_fmt, quant_level (B,) int32, contiguous
+    CUDA tensors. Returns (fmt (B,), vals (B, 8)) int32."""
+    global launches
+    B = ep0.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    hdr = profile >= cuq.PRF_HDR_RGB_LDR_A
+    for name, t in (("ep0", ep0), ("ep1", ep1), ("rgbs", rgbs)) + (
+            (("rgbo", rgbo),) if hdr else ()):
+        _build.check(t, name, f32, (B, 4))
+    _build.check(req_fmt, "req_fmt", i32, (B,))
+    _build.check(quant_level, "quant_level", i32, (B,))
+    dev = ep0.device
+    fmt = torch.empty((B,), dtype=i32, device=dev)
+    vals = torch.empty((B, 8), dtype=i32, device=dev)
+    if B:
+        fn = _pack_fn or _bind_pack()
+        rc = fn(ep0.data_ptr(), ep1.data_ptr(), rgbs.data_ptr(),
+                rgbo.data_ptr() if hdr else None, req_fmt.data_ptr(),
+                quant_level.data_ptr(), gather.quant_tables(dev).data_ptr(),
+                B, profile, fmt.data_ptr(), vals.data_ptr(),
+                _build.stream(ep0.get_device()))
+        if rc != 0:
+            raise RuntimeError("color_pack kernel launch failed: "
+                               + _build.load("color_pack").astc_error_string(
+                                   rc).decode())
+        launches += 1
+    return fmt, vals
+
+
+def use_pack_kernel(ep0, use_kernel: bool) -> bool:
+    """Whether a pack call goes to the kernel: for CUDA tensors unless
+    ``use_kernel`` is False; the plain version for CPU tensors; any other
+    device raises."""
+    if ep0.is_cuda:
+        return use_kernel
+    if ep0.device.type != "cpu":
+        raise ValueError(f"unsupported device {ep0.device}")
+    return False
+
+
+def pack_args(*ts):
+    """The pack's tensors as the kernel takes them: float32 endpoints and
+    int32 requests, contiguous (no copy where they already are)."""
+    return [None if t is None else t.to(
+        torch.float32 if t.is_floating_point() else torch.int32).contiguous()
+        for t in ts]
+
+
+def pack_color_endpoints_ldr(ep0, ep1, rgbs, req_fmt, quant_level,
+                             use_kernel: bool = True):
+    """Batched LDR pack_color_endpoints: the colour pack kernel for CUDA
+    tensors (one launch), the plain version for CPU tensors or with
+    ``use_kernel=False``. Arguments and outputs as the plain version's."""
+    if use_pack_kernel(ep0, use_kernel):
+        return pack_cuda(cuq.PRF_LDR, *pack_args(ep0, ep1, rgbs, None,
+                                                  req_fmt, quant_level))
+    return pack_color_endpoints_ldr_plain(ep0, ep1, rgbs, req_fmt,
+                                          quant_level)

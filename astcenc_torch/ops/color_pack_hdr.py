@@ -6,7 +6,12 @@ order, the first that fits wins" loops and its
 quantize_and_unquantize_retain_top_N_bits decrement loops become candidate
 evaluation over the whole batch with first-valid selection. Colours are in
 the 0..65535 LNS-code domain. Every table lookup goes through
-``color_pack._Q`` (kernel K9 on the card).
+``color_pack._Q``.
+
+That is the plain version. On the card ``pack_color_endpoints`` launches the
+colour pack kernel (``csrc/color_pack.cu``, ``color_pack.pack_cuda``) once
+per call; its HDR arm is ``csrc/color_pack_hdr.cuh``, transcribed from this
+module.
 """
 
 from __future__ import annotations
@@ -270,8 +275,8 @@ def quantize_hdr_rgb(c0, c1, q):
 
 
 def _lum_pair(c0, c1):
-    lum0 = _sum3(c0) / 3.0
-    lum1 = _sum3(c1) / 3.0
+    lum0 = cp.div(_sum3(c0), 3.0)
+    lum1 = cp.div(_sum3(c1), 3.0)
     swap = lum1 < lum0
     avg = (lum0 + lum1) * 0.5
     return (_rtn(torch.where(swap, avg, lum0)),
@@ -356,13 +361,12 @@ def quantize_hdr_alpha(a0, a1, q):
     return torch.where(done[:, None], out, fb)
 
 
-def pack_color_endpoints_hdr(ep0, ep1, rgbo, req_fmt, quant_level,
-                             use_kernel: bool = True):
+def pack_color_endpoints_hdr(ep0, ep1, rgbo, req_fmt, quant_level):
     """HDR-format arm of pack_color_endpoints (reference :2049-2141):
     FMT_HDR_RGB_SCALE, FMT_HDR_RGB, FMT_HDR_LUMINANCE_*,
     FMT_HDR_RGB_LDR_ALPHA and FMT_HDR_RGBA. Returns (fmt (B,), values
     (B, 8))."""
-    q = cp._Q(torch.clamp(quant_level - ise.QUANT_6, 0, 16), use_kernel)
+    q = cp._Q(torch.clamp(quant_level - ise.QUANT_6, 0, 16))
     B = ep0.shape[0]
     z8 = torch.zeros((B, 8), dtype=torch.int32, device=ep0.device)
 
@@ -377,7 +381,7 @@ def pack_color_endpoints_hdr(ep0, ep1, rgbo, req_fmt, quant_level,
     v_lum = pad8(torch.where(sm_ok[:, None], sm_vals, lg_vals))
     f_lum = torch.where(sm_ok, cuq.FMT_HDR_LUMINANCE_SMALL_RANGE,
                         cuq.FMT_HDR_LUMINANCE_LARGE_RANGE)
-    a = torch.clamp(torch.stack([ep0[:, 3], ep1[:, 3]], -1) / 257.0,
+    a = torch.clamp(cp.div(torch.stack([ep0[:, 3], ep1[:, 3]], -1), 257.0),
                     0.0, 255.0)
     v_rgba_ldr = torch.cat([v_rgb6, q.color_res(_rtn(a), a)], 1)
     v_rgba_hdr = torch.cat([v_rgb6, quantize_hdr_alpha(ep0[:, 3], ep1[:, 3],
@@ -399,16 +403,29 @@ def pack_color_endpoints_hdr(ep0, ep1, rgbo, req_fmt, quant_level,
     return out_fmt.to(torch.int32), out_vals.to(torch.int32)
 
 
-def pack_color_endpoints(profile: int, ep0, ep1, rgbs, rgbo, req_fmt,
-                         quant_level, use_kernel: bool = True):
-    """Profile-aware pack_color_endpoints: the LDR packer, and for the HDR
-    profiles both arms with the HDR one taking the HDR formats."""
-    fmt_l, vals_l = cp.pack_color_endpoints_ldr(ep0, ep1, rgbs, req_fmt,
-                                                quant_level, use_kernel)
+def pack_color_endpoints_plain(profile: int, ep0, ep1, rgbs, rgbo, req_fmt,
+                               quant_level):
+    """Plain version of ``pack_color_endpoints``: the LDR packer, and for
+    the HDR profiles both arms with the HDR one taking the HDR formats."""
+    fmt_l, vals_l = cp.pack_color_endpoints_ldr_plain(ep0, ep1, rgbs, req_fmt,
+                                                      quant_level)
     if profile < cuq.PRF_HDR_RGB_LDR_A:
         return fmt_l, vals_l
     fmt_h, vals_h = pack_color_endpoints_hdr(ep0, ep1, rgbo, req_fmt,
-                                             quant_level, use_kernel)
+                                             quant_level)
     is_hdr = cuq.is_format(req_fmt, cuq.HDR_FORMATS)
     return (torch.where(is_hdr, fmt_h, fmt_l),
             torch.where(is_hdr[:, None], vals_h, vals_l))
+
+
+def pack_color_endpoints(profile: int, ep0, ep1, rgbs, rgbo, req_fmt,
+                         quant_level, use_kernel: bool = True):
+    """Profile-aware pack_color_endpoints: ep0, ep1, rgbs, rgbo (B, 4)
+    float32, req_fmt and quant_level (B,) int32 -> (fmt (B,), values
+    (B, 8)) int32. One launch of the colour pack kernel for CUDA tensors,
+    the plain version for CPU tensors or with ``use_kernel=False``."""
+    if cp.use_pack_kernel(ep0, use_kernel):
+        return cp.pack_cuda(profile, *cp.pack_args(ep0, ep1, rgbs, rgbo,
+                                                   req_fmt, quant_level))
+    return pack_color_endpoints_plain(profile, ep0, ep1, rgbs, rgbo, req_fmt,
+                                      quant_level)

@@ -1,22 +1,15 @@
-"""Table gathers: kernel K9 (colour quantizer lookup), kernel K8 (per-row
-table gather), their plain versions, and the kernel switch.
+"""Table gathers: the colour quant tables and their lookup, kernel K8 (per-row
+table gather) with its plain version, and the kernel switch.
 
-K9 replaces the TPU kernel
+``quant_lookup_plain`` is the lookup of the TPU kernel
 ``astcenc_tpu/ops/gather_pallas.py::_master_kernel`` (:170, launched by
 ``_master_lookup_tpu`` :206 from ``master_lookup`` :224): for each row b
 and value k it returns ``lo[q[b], v[b, k]] | hi[q[b], v[b, k]] << 8`` from
-the (17, 256) colour quant tables (``quant_tables_np``), with
-q clamped to [0, 16] and v to [0, 255]. The colour packers
-(``color_pack``, ``color_pack_hdr``) send every table lookup of one call
-site through one call.
-
-On the card (``csrc/quant_lookup.cu``) one thread handles one (row, value)
-element, after its thread block has staged both tables, packed to 16 bits,
-in shared memory. The TPU kernel's one-hot MXU row selection and 128-lane
-slab gathers have no counterpart: a gather is native here. The kernel
-reads q and v and writes the result once, so it is bound by device memory
-bytes; at the packers' sizes (tens of thousands of elements) it is bound by
-launch latency instead.
+the (17, 256) colour quant tables (``quant_tables_np``), with q clamped to
+[0, 16] and v to [0, 255]. The plain colour packers (``color_pack``,
+``color_pack_hdr``) look their values up through it. On the card the
+lookup is a shared-memory read inside the colour pack kernel
+(``csrc/color_pack.cu``), which runs a whole pack call in one launch.
 
 K8 replaces ``gather_pallas.py::_kernel`` (:120, launched by
 ``_row_lookup_2d`` :141/:147 from ``row_lookup`` :251):
@@ -24,12 +17,14 @@ K8 replaces ``gather_pallas.py::_kernel`` (:120, launched by
 float32 tables, float32 moved as its 32-bit pattern. The realign of the
 non-fused trial path looks its prev/next rows up through it. On the card
 (``csrc/row_gather.cu``) one thread handles one (row, index) pair and
-copies all C words of the entry, so both prev/next channels take one
-launch where the TPU launched once per channel, and the 128-lane slab loop
-has no counterpart. It reads each index and entry once and writes each
-word once: bound by device memory bytes, though at the realign's sizes a
-call costs many times its bytes (launch latency and the wrapper's host
-time; PERF.md has the measurements).
+copies all C words of the entry (one 8-byte move for the prev/next pair),
+so both prev/next channels take one launch where the TPU launched once per
+channel, and the 128-lane slab loop has no counterpart. It reads each
+index and entry once and writes each word once: bound by device memory
+bytes, though at the realign's sizes a call costs many times its bytes.
+The wrapper therefore does as little as it can on the host: the kernel
+takes int32 or int64 indices and clamps them itself, the checks read
+attributes only, and the output is allocated in its final shape.
 
 ``kernel_enabled`` is the counterpart of ``gather_pallas._kernel_enabled``
 (:49): ``ASTC_DISABLE_KERNELS="msearch,refine"`` switches those kernel
@@ -49,9 +44,7 @@ import torch
 from ..tables import ise, quant
 from . import _build
 
-#: Launches of the CUDA kernels (the plain versions do not count): K9
-#: and K8.
-launches = 0
+#: Launches of kernel K8 (the plain version does not count).
 launches_rows = 0
 
 
@@ -85,7 +78,7 @@ def quant_tables_np():
 _lohi: dict = {}
 
 
-def _tables(device):
+def quant_tables(device):
     """The (2, 17, 256) int32 lo and hi tables on ``device``, cached."""
     key = str(device)
     if key not in _lohi:
@@ -96,57 +89,11 @@ def _tables(device):
 def quant_lookup_plain(qidx, vals):
     """Plain version: a gather from the packed tables at row q[b], column
     v[b, k]. qidx (B,), vals (B, K) int -> (B, K) int32 lo | hi << 8."""
-    lo, hi = _tables(qidx.device)
+    lo, hi = quant_tables(qidx.device)
     q = torch.clamp(qidx, 0, lo.shape[0] - 1).to(torch.int64)
     v = torch.clamp(vals, 0, lo.shape[1] - 1).to(torch.int64)
     idx = q[:, None] * lo.shape[1] + v
     return torch.take(lo, idx) | (torch.take(hi, idx) << 8)
-
-
-def _lib():
-    lib = _build.load("quant_lookup")
-    if not getattr(lib, "_astc_typed", False):
-        fn = lib.astc_quant_lookup
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p] * 2)
-        lib.astc_error_string.restype = ctypes.c_char_p
-        lib.astc_error_string.argtypes = [ctypes.c_int]
-        lib._astc_typed = True
-    return lib
-
-
-def quant_lookup_cuda(qidx, vals):
-    """Launch kernel K9; same arguments and output as the plain version."""
-    global launches
-    B, K = vals.shape
-    dev = vals.device
-    i32 = torch.int32
-    _build.check(qidx, "qidx", i32, (B,))
-    _build.check(vals, "vals", i32, (B, K))
-    out = torch.empty((B, K), dtype=i32, device=dev)
-    if B * K:
-        lib = _lib()
-        p = _build.ptr
-        rc = lib.astc_quant_lookup(
-            p(qidx), p(vals), p(_tables(dev)), B, K, p(out),
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-        if rc != 0:
-            raise RuntimeError("quant_lookup kernel launch failed: "
-                               + lib.astc_error_string(rc).decode())
-        launches += 1
-    return out
-
-
-def quant_lookup(qidx, vals, use_kernel: bool = True):
-    """Packed colour quant lookup: kernel K9 for CUDA tensors, the plain
-    version for CPU tensors (or anywhere with ``use_kernel=False``)."""
-    if vals.is_cuda and use_kernel:
-        return quant_lookup_cuda(qidx.to(torch.int32).contiguous(),
-                                 vals.to(torch.int32).contiguous())
-    if not vals.is_cuda and vals.device.type != "cpu":
-        raise ValueError(f"unsupported device {vals.device}")
-    return quant_lookup_plain(qidx, vals)
 
 
 # --- K8: per-row table gather ------------------------------------------------
@@ -181,42 +128,70 @@ def row_lookup_plain(rows, idx):
     return _unwords(out, rows.dtype, shape)
 
 
-def _row_lib():
+_row_fn = None
+
+
+def _bind_rows():
+    """astc_row_gather of the built library, its argument types set once."""
+    global _row_fn
     lib = _build.load("row_gather")
-    if not getattr(lib, "_astc_typed", False):
-        fn = lib.astc_row_gather
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p] * 2)
-        lib.astc_error_string.restype = ctypes.c_char_p
-        lib.astc_error_string.argtypes = [ctypes.c_int]
-        lib._astc_typed = True
-    return lib
+    fn = lib.astc_row_gather
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 2)
+    lib.astc_error_string.restype = ctypes.c_char_p
+    lib.astc_error_string.argtypes = [ctypes.c_int]
+    _row_fn = fn
+    return fn
+
+
+_ROW_DTYPES = (torch.int32, torch.float32)
+_IDX_DTYPES = (torch.int32, torch.int64)
+
+
+def _refuse(rows, idx):
+    """Raise the error that says why K8 does not take rows and idx."""
+    if not (rows.is_cuda and idx.is_cuda):
+        raise ValueError("row_lookup_cuda: rows and idx must be CUDA tensors")
+    if rows.dtype not in _ROW_DTYPES or idx.dtype not in _IDX_DTYPES:
+        raise TypeError(f"row_lookup_cuda: rows {rows.dtype} (int32 or "
+                        f"float32), idx {idx.dtype} (int32 or int64)")
+    if not (rows.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("row_lookup_cuda: rows and idx must be contiguous")
+    if rows.get_device() != idx.get_device():
+        raise ValueError("row_lookup_cuda: rows and idx on two devices")
+    raise ValueError(f"row_lookup_cuda: rows {tuple(rows.shape)} do not "
+                     f"match idx {tuple(idx.shape)}")
 
 
 def row_lookup_cuda(rows, idx):
-    """Launch kernel K8; same arguments and output as the plain version."""
+    """Launch kernel K8; same arguments and output as the plain version.
+    rows (..., V[, C]) int32 or float32 and idx (..., K) int32 or int64,
+    contiguous, on one CUDA device; raises on anything else. The call is
+    host-bound (PERF.md), so the checks are one expression of attribute
+    reads, and the output is allocated once, in its final shape."""
     global launches_rows
-    r, i, shape = _words(rows, idx)
-    B, V, C = r.shape
-    K = i.shape[1]
-    if i.dtype != torch.int32:
-        i = i.clamp(0, V - 1).to(torch.int32)
-    r, i = r.contiguous(), i.contiguous()
-    _build.check(r, "rows", torch.int32, (B, V, C))
-    _build.check(i, "idx", torch.int32, (B, K))
-    out = torch.empty((B, K, C), dtype=torch.int32, device=r.device)
-    if B * K * C:
-        lib = _row_lib()
-        p = _build.ptr
-        rc = lib.astc_row_gather(
-            p(r), p(i), B, V, K, C, p(out),
-            ctypes.c_void_p(torch.cuda.current_stream(r.device).cuda_stream))
+    nb = idx.dim() - 1
+    tail = rows.shape[nb + 1:]
+    if not (rows.is_cuda and idx.is_cuda and rows.dtype in _ROW_DTYPES
+            and idx.dtype in _IDX_DTYPES and rows.dim() in (nb + 1, nb + 2)
+            and rows.is_contiguous() and idx.is_contiguous()
+            and rows.shape[:nb] == idx.shape[:nb]
+            and rows.get_device() == idx.get_device()):
+        _refuse(rows, idx)
+    out = rows.new_empty(idx.shape + tail)
+    K = idx.shape[-1]
+    if out.numel():
+        fn = _row_fn or _bind_rows()
+        rc = fn(rows.data_ptr(), idx.data_ptr(), idx.dtype == torch.int64,
+                idx.numel() // K, rows.shape[nb], K, tail[0] if tail else 1,
+                out.data_ptr(), _build.stream(rows.get_device()))
         if rc != 0:
             raise RuntimeError("row_gather kernel launch failed: "
-                               + lib.astc_error_string(rc).decode())
+                               + _build.load("row_gather").astc_error_string(
+                                   rc).decode())
         launches_rows += 1
-    return _unwords(out, rows.dtype, shape)
+    return out
 
 
 def row_lookup(rows, idx, use_kernel: bool = True):

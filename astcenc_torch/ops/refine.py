@@ -39,9 +39,9 @@ The plain versions are the XLA refine loops of ``trial.py:660-721``
 (1 plane) and ``:1227-1288`` (2 planes), built on ``recompute``,
 ``color_pack`` and ``realign``. They are also the encoder's path when the
 ``refine`` family is switched off (``gather.kernel_enabled``): there the
-routers' ``gathers=True`` sends their table gathers to the card, the
-realign's prev/next lookups to kernel K8 and the pack's quantizer lookups
-to K9, as the JAX package's XLA branches run them on the TPU. With the
+routers' ``gathers=True`` sends the realign's prev/next lookups to kernel
+K8 and each colour pack to the colour pack kernel K9, as the JAX package's
+XLA branches run their gathers on the TPU. With the
 default (``use_kernel=False`` of a plain version) they are plain
 throughout.
 """
@@ -164,7 +164,7 @@ def trial1_refine_plain(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
       fmt_req: (NC, pc) int32; alive: (NC,) bool; texels: (N, T, 4)
       float32; pot: (N, T) int32 partition of each texel; ep0/ep1:
       (N, pc, 4) ideal endpoints; lane i belongs to block i // C.
-      use_kernel: gathers through K8 and K9 for CUDA tensors.
+      use_kernel: realign lookups on K8 and packs on K9 for CUDA tensors.
 
     Returns dict fmt (R, NC, 4), vals (R, NC, 4, 8), useq (R, NC), match
     (R, NC) bool, wpost (R, NC, W) int32; err_pre (NC,) and err_post
@@ -237,8 +237,8 @@ def trial2_refine_plain(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
       plane-2 component; texels: (N0, T, 4) and data_mean (N0, 4), where
       block b reads texel row b % N0 (the four plane-2 components of a
       block are four blocks); ep0/ep1: (N, 4) ideal endpoints; lane i
-      belongs to block i // C; use_kernel: gathers through K8 and K9 for
-      CUDA tensors.
+      belongs to block i // C; use_kernel: realign lookups on K8 and packs
+      on K9 for CUDA tensors.
 
     Returns dict fmt (R, NC), vals (R, NC, 8), w1post/w2post (R, NC, W)
     int32; err_pre (NC,) and err_post (R, NC) float32, alive-masked.
@@ -666,8 +666,8 @@ def trial1_refine(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels, pot,
                   gathers: bool = False):
     """1-plane refinement rounds: kernel K2 for CUDA tensors, the plain
     version for CPU tensors. ``use_kernel=False`` runs the plain version
-    anywhere; ``gathers`` sends the plain version's lookups to K8 and K9
-    for CUDA tensors (the refine-off path)."""
+    anywhere; ``gathers`` sends the plain version's lookups to K8 and its
+    packs to K9 for CUDA tensors (the refine-off path)."""
     return _route(texels, use_kernel, trial1_refine_cuda, trial1_refine_plain,
                   (pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels, pot,
                    ep0, ep1, C, R, u8_mask, cw, profile), gathers)

@@ -10,7 +10,9 @@ photographs, so the channels of most blocks are correlated. With
 its own (a seeded sinusoid with noise, as a mask or a detail map packed in
 alpha would be): blocks there have decorrelated channels, which the
 encoder's 2-plane stage (1 partition, alpha on its own weight plane) wins.
-``synthetic_hdr_image`` is the float16 HDR counterpart.
+``synthetic_hdr_image`` is the float16 HDR counterpart. ``pack_batch``
+makes the colour pack's inputs: seeded endpoint pairs, requested formats
+and quant levels, with the pack's corner cases added on request.
 """
 
 from __future__ import annotations
@@ -124,3 +126,95 @@ def synthetic_hdr_image(height: int, width: int, seed: int = 0,
         img[..., 3] = np.where(x >= width // 2, np.clip(alpha, 0, 1),
                                img[..., 3])
     return np.clip(img, 0.0, 65504.0).astype(np.float16)
+
+
+def endpoint_pairs(rng, n: int):
+    """(ep0, ep1, rgbs, rgbo), each (n, 4) float32: seeded endpoint pairs
+    in the 0..65535 (LNS-code) domain from the numpy Generator ``rng``:
+    mostly ordered pairs at every brightness, some wide, some equal, some
+    out of range; rgbs is ep1's RGB with a scale in [0, 1], rgbo ep0's RGB
+    with the alpha spread as its offset."""
+    base = rng.uniform(0.0, 65535.0, (n, 1)).astype(np.float32)
+    spread = np.exp2(rng.uniform(0, 16, (n, 1))).astype(np.float32)
+    ep0 = base + rng.normal(0, 1, (n, 4)).astype(np.float32) * spread * 0.05
+    ep1 = ep0 + np.abs(rng.normal(0, 1, (n, 4))).astype(np.float32) * spread
+    ep1[: n // 16] = ep0[: n // 16]
+    ep0[n // 16: n // 8] -= 3000.0
+    rgbs = np.concatenate([ep1[:, :3], rng.uniform(0, 1, (n, 1))], 1)
+    rgbo = np.concatenate([ep0[:, :3], np.abs(ep1[:, 3:] - ep0[:, 3:])], 1)
+    return (ep0.astype(np.float32), ep1.astype(np.float32),
+            rgbs.astype(np.float32), rgbo.astype(np.float32))
+
+
+#: The requested formats of ``pack_batch``'s seeded rows: every format an
+#: encoder asks for, LDR (0, 4, 6, 8, 10, 12) and HDR (2, 3, 7, 11, 14, 15).
+PACK_FORMATS = (0, 2, 3, 4, 6, 7, 8, 10, 11, 12, 14, 15)
+
+# quantize_hdr_rgbo's (colour, scale) cutoffs per mode and quantize_hdr_rgb's
+# (b, c, d) cutoffs (ops/color_pack_hdr.py).
+_RGBO_CUTOFFS = ((1024, 4096), (2048, 1024), (2048, 16384), (8192, 16384),
+                 (32768, 16384))
+_RGB_CUTOFFS = ((16384, 8192, 8192), (32768, 8192, 4096), (4096, 8192, 4096),
+                (8192, 8192, 2048), (8192, 2048, 512), (2048, 8192, 1024),
+                (2048, 2048, 256), (1024, 2048, 512))
+
+
+def _pack_corners():
+    """(ep0, ep1, rgbs, rgbo) rows, each (m, 4) float32, at the pack's
+    corners: endpoints at 0 and 65535, ties of the major component, rgbo
+    vectors on each side of every mode cutoff of quantize_hdr_rgbo and
+    endpoint pairs at those of quantize_hdr_rgb."""
+    rows = []
+    top = 65535.0
+    for a, b in ((0.0, 0.0), (top, top), (0.0, top), (top, 0.0)):
+        for s in (0.0, 1.0):
+            rows.append(([a] * 4, [b] * 4, [b, b, b, s], [a, a, a, b]))
+    rows.append(([0.0, top, 0.0, top], [top, 0.0, top, 0.0],
+                 [top, 0.0, top, 0.5], [0.0, top, 0.0, 0.0]))
+    for v in (0.0, 300.0, 20000.0, 65535.0):
+        for r, g, b in ((v, v, v), (v, v, v / 2), (v, v / 2, v),
+                        (v / 2, v, v)):
+            rows.append(([r / 2, g / 2, b / 2, 100.0], [r, g, b, 60000.0],
+                         [r, g, b, 0.5], [r, g, b, v / 4]))
+    r = 40000.0
+    for gb_cut, s_cut in _RGBO_CUTOFFS:
+        for d in (-1.0, -0.5, 0.0, 0.5, 1.0):
+            for gb, s in ((gb_cut + d, s_cut + d), (gb_cut + d, 100.0),
+                          (100.0, s_cut + d)):
+                rgbo = [r, r - gb, r - gb, s]
+                rows.append(([r - 500.0] * 3 + [0.0], [r] * 3 + [top],
+                             [r] * 3 + [0.5], rgbo))
+    a = 50000.0
+    for b_cut, c_cut, d_cut in _RGB_CUTOFFS:
+        for d in (-1.0, 0.0, 1.0):
+            e1 = [a, a - b_cut + d, a - b_cut + d, top]
+            e0 = [a - c_cut + d, a - b_cut - d_cut + d, a - b_cut + d_cut,
+                  0.0]
+            rows.append((e0, e1, e1[:3] + [1.0], e0[:3] + [0.0]))
+    return tuple(np.array([row[i] for row in rows], np.float32)
+                 for i in range(4))
+
+
+def pack_batch(seed: int, n: int = 4096, corners: bool = False):
+    """The colour pack's inputs: (ep0, ep1, rgbs, rgbo) (m, 4) float32,
+    req_fmt (m,) and quant_level (m,) int32. n seeded rows
+    (``endpoint_pairs``, formats from ``PACK_FORMATS``, quant levels 4-20);
+    with ``corners`` also every row of ``_pack_corners`` under each of the
+    16 formats at two quant levels, so that every (format, quant level)
+    pair occurs."""
+    rng = np.random.default_rng(seed)
+    ep0, ep1, rgbs, rgbo = endpoint_pairs(rng, n)
+    req = rng.choice(np.array(PACK_FORMATS, np.int32), n)
+    ql = rng.integers(4, 21, n).astype(np.int32)
+    out = [ep0, ep1, rgbs, rgbo, req, ql]
+    if corners:
+        cols = _pack_corners()
+        m = cols[0].shape[0]
+        i, f, k = np.meshgrid(np.arange(m), np.arange(16), np.arange(2),
+                              indexing="ij")
+        i, f, k = i.ravel(), f.ravel(), k.ravel()
+        extra = [c[i] for c in cols]
+        extra += [f.astype(np.int32),
+                  (4 + (7 * i + 3 * f + 8 * k) % 17).astype(np.int32)]
+        out = [np.concatenate([a, b]) for a, b in zip(out, extra)]
+    return tuple(out)

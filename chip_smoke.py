@@ -10,8 +10,9 @@ non-zero and never prints the last line:
 2. build: compile kernels K1 (mode search), K2 (1-plane refinement), K3
    (2-plane refinement), K4 (partition line errors), K5 (one 1-plane HDR
    round), K6 and K7 (one 2-plane HDR round, its bootstrap), K8 (per-row
-   table gather) and K9 (colour quantizer lookup) from astcenc_torch/csrc
-   with nvcc for sm_90a, one nvcc per source, started together;
+   table gather) and K9 (the colour pack, one launch per pack call, in
+   place of the TPU's colour quantizer lookup) from astcenc_torch/csrc with
+   nvcc for sm_90a, one nvcc per source, started together;
 3. kernels: capture the real inputs of every kernel form from a 512x512
    main-path encode (K1 with 1 and 2 planes and 2 and 3 partitions, K2 at
    1-3 partitions, K3, K4 at 2 and 3 partitions) and hold each kernel
@@ -30,32 +31,42 @@ non-zero and never prints the last line:
    versions, >= 99% of blocks identical;
 7. HDR kernels: capture the first-call inputs of every HDR kernel form
    from a 512x512 synthetic float16 HDR encode at -ch (K5 bootstrap and
-   rounds at 1-3 partitions, K6, K7, K9's first and first 72-wide call)
-   and hold each against its plain version (K5, K6: grids identical on
-   99.9% of the lanes, errors within 3e-4; K7 within 1e-6; K9 bit-exact);
+   rounds at 1-3 partitions, K6, K7; K9 on the first 1-plane pack at 1
+   partition, the first matched-format pack at 2 or more partitions and
+   the first 2-plane pack), add K9 on the seeded pack batch with its
+   corner cases (testdata.pack_batch) at profiles 0 and 3, and hold each
+   against its plain version (K5, K6: grids identical on 99.9% of the
+   lanes, errors within 3e-4; K7 within 1e-6; K9 bit-exact), with the
+   plain pack's quantizer lookups per call;
 8. HDR path: a 2048x2048 synthetic float16 HDR texture (right half with an
    alpha of its own) through api.compress_image at 6x6 -medium -ch (phase
    7's encode was the warm-up); a second encode must be identical and is
    timed too; decoded to float32: encode rate, mPSNR, log-RMSE, block
-   counts by kind and by endpoint format, launch counts; then a profiled
-   encode of its central 1024x1024 quarter;
+   counts by kind and by endpoint format, launch counts; a profiled encode
+   of the whole texture (device ops, idle share, K9 launches beside the
+   K9 launches and device ops of the earlier lookup kernel); then a
+   profiled encode of its central 1024x1024 quarter;
 9. HDR crop: a 256x256 crop of it at -cH through the kernels and through
    the plain versions, >= 99% of blocks identical, HDR alpha present;
 10. K8: capture the first realign lookup of a 512x512 main-path encode
     with ASTC_DISABLE_KERNELS=refine, and make a seeded float32 (16384,
     300) table holding NaN payloads, +-Inf, -0.0 and denormals with 200
-    indices per row, some out of range; hold K8 against its plain version
-    bit for bit and time both and torch.gather;
+    indices per row, some out of range, with int32 and with int64 indices;
+    hold K8 against its plain version bit for bit and time both and
+    torch.gather, with the profiler's device time per call of K8 and of
+    torch.gather and the host time of each step of K8's wrapper;
 11. LDR refine-off path: the main-path texture with
-    ASTC_DISABLE_KERNELS=refine (the plain refinement, its gathers on K8
-    and K9): encode rate, PSNR, share of blocks identical to phase 5's
-    fused encode (>= 90%, PSNR within 0.05 dB), launches (K2 and K3 none,
-    K8 some);
+    ASTC_DISABLE_KERNELS=refine (the plain refinement, its realign lookups
+    on K8 and its packs on K9): encode rate, PSNR, share of blocks
+    identical to phase 5's fused encode (>= 90%, PSNR within 0.05 dB),
+    launches (K2 and K3 none, K8 some); then a profiled refine-off encode
+    of its central 1024x1024 quarter;
 12. the same with msearch,refine on the central 1024x1024 quarter,
     against the fused encode of that quarter (K1 none);
 13. HDR refine-off path: phase 8's profiled 1024x1024 centre at -ch with
     refine off, against the fused blocks of that profiled encode (mPSNR
-    within 0.05 dB, >= 90% identical; K5-K7 none, K8 some).
+    within 0.05 dB, >= 90% identical; K5-K7 none, K8 some); then the same
+    encode profiled.
 
 The fused main paths (phases 5 and 8) must launch K8 no time, as on the
 TPU. The lines before the last are the kernel table as JSON (K1-K4
@@ -69,11 +80,13 @@ operations over 67 TFLOP/s (H100 SXM, float32 without tensor cores). The
 operation counts are models of the kernels' loops, per texel and weight,
 written out in the ``_ops_*`` functions; where the work depends on the
 data (lanes that stop refining), they count what the captured inputs need.
-``library_ms`` is the time of one PyTorch call computing a kernel's
-function on the same inputs, where one exists: ``torch.gather`` for K8 and
-one advanced-indexing call into the packed (17, 256) table for K9 (the
-clamp and the int64 conversion of their indices made before the timed
-call); null for the others.
+K9's operations are a lower bound of the pack's scalar work, per row and
+requested format (``_ops_pack``: the first mode tried fits and every
+retain-top-bits search stops at its first step). ``library_ms`` is the time
+of one PyTorch call computing a kernel's function on the same inputs, where
+one exists: ``torch.gather`` for K8 (the clamp and the int64 conversion of
+its indices made before the timed call); null for the others, K9 included
+(no single PyTorch call computes a colour pack).
 """
 
 from __future__ import annotations
@@ -117,6 +130,19 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _host_us(fn, n: int = 2000) -> float:
+    """Host microseconds per call of fn over n calls (the device may run
+    behind; it is synchronized after)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def _psnr(a: np.ndarray, b: np.ndarray) -> float:
@@ -342,38 +368,40 @@ def _profile(run):
                      ("K5_ms", "refine_round_kernel"),
                      ("K6_ms", "refine_round2_kernel"),
                      ("K7_ms", "refine_boot2_kernel"),
-                     ("K8_ms", "row_gather_kernel"),
-                     ("K9_ms", "quant_lookup_kernel")):
+                     ("K8_ms", "row_gather"),
+                     ("K9_ms", "color_pack_kernel")):
         out[tag] = sum(r[0] for r in rows if pat in r[1])
     out["top"] = [[k[:60], round(ms, 3), n] for ms, k, n in rows[:10]]
     return out
 
 
-def _reset(msearch, refine, psearch, gather):
+def _reset(msearch, refine, psearch, gather, color_pack):
     msearch.launches = refine.launches = refine.launches2 = 0
     refine.launches_round1 = refine.launches_round2 = 0
-    refine.launches_boot2 = psearch.launches = gather.launches = 0
+    refine.launches_boot2 = psearch.launches = color_pack.launches = 0
     gather.launches_rows = 0
 
 
-def _counts(msearch, refine, psearch, gather):
+def _counts(msearch, refine, psearch, gather, color_pack):
     return {"msearch": msearch.launches, "refine": refine.launches,
             "refine2": refine.launches2, "psearch": psearch.launches,
             "refine_round": refine.launches_round1,
             "refine_round2": refine.launches_round2,
             "refine_boot2": refine.launches_boot2,
             "row_gather": gather.launches_rows,
-            "quant_lookup": gather.launches}
+            "color_pack": color_pack.launches}
 
 
-def _capture_hdr(refine, gather):
+def _capture_hdr(refine, cph):
     """Wrap the HDR kernels' dispatchers to record the inputs of the first
     call of each form: K5 bootstrap and K5 rounds by partition count, K6,
-    K7, and K9 (its first call, and its first 72-wide call, the retain-top-
-    bits search). Returns (seen, restore)."""
+    K7, and K9 (the pack): the first 1-plane pack at 1 partition, the
+    first matched-format pack (at cqm) of 2 or more partitions, the first
+    2-plane pack. Returns (seen, restore)."""
     seen = {}
     orig = {"r1": refine.refine_round_1plane, "r2": refine.refine_round_2plane,
-            "q": gather.quant_lookup}
+            "pp": refine.pack_partitions, "pk": cph.pack_color_endpoints}
+    inside = []                # [pc, pack calls so far] in pack_partitions
 
     def keep(key, args):
         if key not in seen:
@@ -387,23 +415,53 @@ def _capture_hdr(refine, gather):
         keep(("K7" if args[10] == 0 else "K6", "two"), (pt,) + args)
         return orig["r2"](pt, *args, **kw)
 
-    def q(qidx, vals, *args, **kw):
-        keep(("K9", "first"), (qidx.to(torch.int32).contiguous(),
-                               vals.to(torch.int32).contiguous()))
-        if vals.shape[1] == 72:
-            keep(("K9", "k72"), (qidx.to(torch.int32).contiguous(),
-                                 vals.to(torch.int32).contiguous()))
-        return orig["q"](qidx, vals, *args, **kw)
+    def pp(pack, cq, cqm, pc):
+        inside.append([pc, 0])
+        try:
+            return orig["pp"](pack, cq, cqm, pc)
+        finally:
+            inside.pop()
+
+    def pk(profile, *args, **kw):
+        if not inside:
+            keep(("K9", "two"), (profile,) + args)
+        else:
+            pc, calls = inside[-1]
+            if pc == 1 and calls == 0:
+                keep(("K9", "pc1"), (profile,) + args)
+            elif pc >= 2 and calls == 1:
+                keep(("K9", "cqm"), (profile,) + args)
+            inside[-1][1] += 1
+        return orig["pk"](profile, *args, **kw)
 
     refine.refine_round_1plane = r1
     refine.refine_round_2plane = r2
-    gather.quant_lookup = q
+    refine.pack_partitions = pp
+    cph.pack_color_endpoints = pk
 
     def restore():
         refine.refine_round_1plane = orig["r1"]
         refine.refine_round_2plane = orig["r2"]
-        gather.quant_lookup = orig["q"]
+        refine.pack_partitions = orig["pp"]
+        cph.pack_color_endpoints = orig["pk"]
     return seen, restore
+
+
+# K9, per row, a lower bound of the pack's scalar work for the requested
+# format: the first mode tried fits and every retain-top-bits search stops
+# at its first step. LDR RGB/RGBA: four trials of quantize, unpack and
+# error (90 each); other LDR formats 40; HDR RGB (with either alpha) 110
+# (+20 for the HDR alpha); HDR RGB scale 60; HDR luminance 40.
+def _ops_pack(profile, req_fmt):
+    r = req_fmt.long()
+    hdr = profile >= 2
+    ops = torch.full_like(r, 40)
+    ops[(r == 8) | (r == 12)] = 360
+    if hdr:
+        ops[(r == 11) | (r == 14)] = 110
+        ops[r == 15] = 130
+        ops[r == 7] = 60
+    return float(ops.sum())
 
 
 # K5/K6, per lane: the trial error (40 per texel) before and after, the
@@ -486,6 +544,8 @@ def main() -> int:
     from astcenc_torch.codec import compress as compress_mod
     from astcenc_torch.codec import decompress, partition_search
     from astcenc_torch.ops import _build, gather, msearch, psearch, refine
+    from astcenc_torch.ops import color_pack as cp
+    from astcenc_torch.ops import color_pack_hdr as cph
     from astcenc_torch.utils import metrics
 
     smi = _smi()
@@ -506,7 +566,7 @@ def main() -> int:
         how = f"cached libraries loaded in {build_s:.1f} s"
     print(f"build: K1 msearch.cu, K2 refine.cu, K3 refine2.cu, K4 psearch.cu, "
           f"K5 refine_round.cu, K6 and K7 refine_round2.cu, K8 row_gather.cu, "
-          f"K9 quant_lookup.cu {how}", flush=True)
+          f"K9 color_pack.cu {how}", flush=True)
 
     cfg = api.config_init(api.Profile.LDR, 6, 6, 1, api.Quality.MEDIUM, 0)
     ctx = api.context_alloc(cfg, device=dev)
@@ -651,7 +711,7 @@ def main() -> int:
     cfg1.tune_2plane_early_out_limit_correlation = 0.0
     ctx1 = api.context_alloc(cfg1, device=dev)
     img1 = testdata.synthetic_image(CAPTURE, CAPTURE, args.seed + 2)
-    counters = (msearch, refine, psearch, gather)
+    counters = (msearch, refine, psearch, gather, cp)
     _reset(*counters)
     t0 = time.perf_counter()
     b1 = api.compress_image(ctx1, img1)
@@ -723,15 +783,15 @@ def main() -> int:
     cfg_h = api.config_init(api.Profile.HDR_RGB_LDR_A, 6, 6, 1,
                             api.Quality.MEDIUM, 0)
     ctx_h = api.context_alloc(cfg_h, device=dev)
-    seen, restore = _capture_hdr(refine, gather)
+    seen, restore = _capture_hdr(refine, cph)
     try:
         api.compress_image(ctx_h, testdata.synthetic_hdr_image(
             CAPTURE, CAPTURE, args.seed + 1, independent_alpha=True))
     finally:
         restore()
     want_forms = {("K5", "boot"), ("K5", "pc1"), ("K5", "pc2"), ("K5", "pc3"),
-                  ("K6", "two"), ("K7", "two"), ("K9", "first"),
-                  ("K9", "k72")}
+                  ("K6", "two"), ("K7", "two"), ("K9", "pc1"), ("K9", "cqm"),
+                  ("K9", "two")}
     missing = want_forms - set(seen)
     assert not missing, f"HDR forms not captured: {sorted(missing)}"
 
@@ -787,24 +847,41 @@ def main() -> int:
                 for u in ("undec1", "undec2")),
             {"lanes": lanes, "infill_rel_max": urel})
 
-    lohi = gather._tables(dev)
-    packed = lohi[0] | (lohi[1] << 8)                 # (17, 256)
-    for form in ("first", "k72"):
-        q, v = seen[("K9", form)]
-        got = gather.quant_lookup_cuda(q, v)
-        want = gather.quant_lookup_plain(q, v)
-        qi = q.clamp(0, 16).long()[:, None]
-        vi = v.clamp(0, 255).long()
+    for prof_c in (0, 3):
+        seen[("K9", f"corners_p{prof_c}")] = [prof_c] + [
+            torch.from_numpy(x).to(dev)
+            for x in testdata.pack_batch(args.seed + 4, 40000, corners=True)]
+    lookups = [0]
+    orig_ql = gather.quant_lookup_plain
+
+    def counted_ql(*a, **kw):
+        lookups[0] += 1
+        return orig_ql(*a, **kw)
+
+    for form in ("pc1", "cqm", "two", "corners_p0", "corners_p3"):
+        prof_k, *a = seen[("K9", form)]
+        a = cp.pack_args(*a)
+        got = cp.pack_cuda(prof_k, *a)
+        gather.quant_lookup_plain = counted_ql
+        lookups[0] = 0
+        try:
+            want = cph.pack_color_endpoints_plain(prof_k, *a)
+        finally:
+            gather.quant_lookup_plain = orig_ql
         torch.cuda.synchronize()
-        assert bool((got == want).all()), f"K9 {form} differs"
-        assert bool((packed[qi, vi] == want).all()), f"K9 {form} library"
-        account("K9", form, _time_ms(lambda: gather.quant_lookup_cuda(q, v),
-                                     20),
-                _time_ms(lambda: gather.quant_lookup_plain(q, v), 20),
-                _nbytes(q, v, got) + 2 * 17 * 256 * 4, 4.0 * v.numel(), 0.0,
-                {"rows": v.shape[0], "values": v.shape[1],
-                 "bit_exact": True},
-                library_ms=_time_ms(lambda: packed[qi, vi], 20))
+        same = bool((got[0] == want[0]).all() and (got[1] == want[1]).all())
+        assert same, f"K9 {form} differs from the plain pack"
+        rows_k = a[0].shape[0]
+        nbytes = (_nbytes(*a[:3], a[4], a[5], *got) + 2 * 17 * 256 * 4
+                  + (_nbytes(a[3]) if prof_k >= 2 else 0))
+        account("K9", form, _time_ms(lambda: cp.pack_cuda(prof_k, *a), 20),
+                _time_ms(lambda: cph.pack_color_endpoints_plain(prof_k, *a),
+                         2),
+                nbytes, _ops_pack(prof_k, a[4]), 0.0,
+                {"rows": rows_k, "profile": prof_k, "bit_exact": True,
+                 "plain_lookups_per_call": lookups[0],
+                 "formats": {int(k): int(v) for k, v in zip(*torch.unique(
+                     a[4], return_counts=True))}})
 
     # --- 8. the HDR path ----------------------------------------------------
     img_h = testdata.synthetic_hdr_image(HDR_SIZE, HDR_SIZE, args.seed,
@@ -818,7 +895,7 @@ def main() -> int:
     enc_h = time.perf_counter() - t0
     launches_h = _counts(*counters)
     hdr_kernels = ("msearch", "psearch", "refine_round", "refine_round2",
-                   "refine_boot2", "quant_lookup")
+                   "refine_boot2", "color_pack")
     assert all(launches_h[k] > 0 for k in hdr_kernels), launches_h
     assert launches_h["row_gather"] == 0, launches_h
     t0 = time.perf_counter()
@@ -843,8 +920,19 @@ def main() -> int:
           f"mPSNR {mp:.4f} dB, log-RMSE {lr:.5f}, blocks "
           f"{json.dumps(kinds_h)}, endpoint formats {json.dumps(fmts_h)}, "
           f"launches {json.dumps(launches_h)} | {smi}", flush=True)
-    # Profiled on the central quarter (both halves of the alpha): the whole
-    # texture's 800,000 device operations take minutes to tabulate.
+    # The whole texture profiled once: its device operations and idle share,
+    # and the pack kernel's launches beside the per-lookup kernel's that it
+    # replaced (PERF.md: 826,525 device operations and 21,332 lookup
+    # launches per encode of this texture).
+    _reset(*counters)
+    prof_w = _profile(lambda: api.compress_image(ctx_h, img_h))
+    n_w = _counts(*counters)
+    print(f"{at()} HDR profile ({HDR_SIZE}x{HDR_SIZE}, whole texture): "
+          f"{json.dumps(prof_w)}, K9 color_pack launches {n_w['color_pack']} "
+          f"(the per-lookup kernel it replaced, PERF.md: 21332 launches, "
+          f"826525 device ops) | {smi}", flush=True)
+    # Profiled again on the central quarter (both halves of the alpha),
+    # whose fused blocks phase 13 compares with.
     q = HDR_SIZE // 4
     img_p = np.ascontiguousarray(img_h[q:3 * q, q:3 * q])
     held = []                  # the fused blocks of the centre, for phase 13
@@ -896,9 +984,9 @@ def main() -> int:
          0xFF800000, 0x80000000, 0x00000001, 0x807FFFFF, 0x00400000],
         np.uint32), 800)
     ridx = rng.randint(-20, 320, (16384, 200)).astype(np.int32)
-    forms = {"realign": first[0],
-             "f32": (torch.from_numpy(tab).to(dev),
-                     torch.from_numpy(ridx).to(dev))}
+    tab_d, ridx_d = torch.from_numpy(tab).to(dev), torch.from_numpy(ridx).to(dev)
+    forms = {"realign": first[0], "f32": (tab_d, ridx_d),
+             "f32_i64": (tab_d, ridx_d.long())}
     for form, (rows, idx) in forms.items():
         got = gather.row_lookup_cuda(rows, idx)
         want = gather.row_lookup_plain(rows, idx)
@@ -919,6 +1007,9 @@ def main() -> int:
             "device_busy_ms"] / 20 * 1e3 for k, fn in (
                 ("kernel", lambda: gather.row_lookup_cuda(rows, idx)),
                 ("library", lambda: torch.gather(rows, 1, ie)))}
+        print(f"{at()} K8 profile {form} ({idx.dtype} indices): device us per "
+              f"call: K8 {dev_us['kernel']:.3f}, torch.gather "
+              f"{dev_us['library']:.3f}", flush=True)
         account("K8", form, _time_ms(lambda: gather.row_lookup_cuda(rows, idx),
                                      20),
                 _time_ms(lambda: gather.row_lookup_plain(rows, idx), 20),
@@ -928,6 +1019,37 @@ def main() -> int:
                  "device_us_per_call": dev_us},
                 library_ms=_time_ms(lambda: torch.gather(rows, 1, ie),
                                     20))
+
+    # Host time of each step of K8's wrapper, on the realign form: the
+    # allocation (as the wrapper makes it, and as torch.empty would), the
+    # stream handle (raw, and through a torch.cuda.Stream), the ctypes call
+    # without a launch (no rows) and with it.
+    rows, idx = first[0]
+    V, C = rows.shape[1], rows.shape[2]
+    shape = idx.shape + (C,)
+    out = rows.new_empty(shape)
+    ie = idx.clamp(0, V - 1).long()[..., None].expand(-1, -1, C)
+    fn, sh = gather._row_fn, _build.stream(dev.index)
+
+    def call(B):
+        return fn(rows.data_ptr(), idx.data_ptr(), False, B, V, idx.shape[1],
+                  C, out.data_ptr(), sh)
+
+    steps = {
+        "row_lookup": lambda: gather.row_lookup(rows, idx),
+        "row_lookup_cuda": lambda: gather.row_lookup_cuda(rows, idx),
+        "torch.gather": lambda: torch.gather(rows, 1, ie),
+        "rows.new_empty": lambda: rows.new_empty(shape),
+        "torch.empty": lambda: torch.empty(shape, dtype=rows.dtype,
+                                           device=dev),
+        "_build.stream (raw handle)": lambda: _build.stream(dev.index),
+        "current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "ctypes call, no launch": lambda: call(0),
+        "ctypes call and launch": lambda: call(idx.shape[0])}
+    print(f"{at()} K8 host us per call: "
+          f"{json.dumps({k: round(_host_us(f), 3) for k, f in steps.items()})}",
+          flush=True)
 
     # --- 11. the LDR refine-off path ------------------------------------
     _reset(*counters)
@@ -939,7 +1061,7 @@ def main() -> int:
     launches_r = _counts(*counters)
     assert launches_r["refine"] == 0 and launches_r["refine2"] == 0, \
         launches_r
-    for k in ("msearch", "psearch", "row_gather", "quant_lookup"):
+    for k in ("msearch", "psearch", "row_gather", "color_pack"):
         assert launches_r[k] > 0, launches_r
     dec_r = api.decompress_image(ctx, blocks_r, SIZE, SIZE)[0]
     assert dec_r.shape == img.shape and np.isfinite(dec_r).all()
@@ -952,10 +1074,14 @@ def main() -> int:
           f"(fused {psnr:.4f}), {ident_r:.6f} of blocks identical to the "
           f"fused encode, launches {json.dumps(launches_r)} | {smi}",
           flush=True)
-
-    # --- 12. msearch,refine off on the central quarter -------------------
     q = SIZE // 4
     img_q = np.ascontiguousarray(img[q:3 * q, q:3 * q])
+    with _disabled("refine"):
+        prof_r = _profile(lambda: api.compress_image(ctx, img_q))
+    print(f"{at()} LDR refine-off profile ({2 * q}x{2 * q} centre): "
+          f"{json.dumps(prof_r)} | {smi}", flush=True)
+
+    # --- 12. msearch,refine off on the central quarter -------------------
     fused_q = api.compress_image(ctx, img_q)
     _reset(*counters)
     t0 = time.perf_counter()
@@ -1002,6 +1128,10 @@ def main() -> int:
           f"{mp_r:.4f} dB (fused {mp_f:.4f}), {ident_h:.6f} of blocks "
           f"identical to the fused encode, launches "
           f"{json.dumps(launches_hr)} | {smi}", flush=True)
+    with _disabled("refine"):
+        prof_hr = _profile(lambda: api.compress_image(ctx_h, img_p))
+    print(f"{at()} HDR refine-off profile ({2 * q}x{2 * q} centre): "
+          f"{json.dumps(prof_hr)} | {smi}", flush=True)
 
     meta = {"K1": ("msearch", "astcenc_torch/csrc/msearch.cu",
                    "astcenc_tpu/ops/msearch_pallas.py:281"),
@@ -1019,7 +1149,7 @@ def main() -> int:
                    "astcenc_tpu/ops/refine_pallas.py:1244"),
             "K8": ("row_gather", "astcenc_torch/csrc/row_gather.cu",
                    "astcenc_tpu/ops/gather_pallas.py:120"),
-            "K9": ("quant_lookup", "astcenc_torch/csrc/quant_lookup.cu",
+            "K9": ("color_pack", "astcenc_torch/csrc/color_pack.cu",
                    "astcenc_tpu/ops/gather_pallas.py:170")}
     kernels = []
     for kern, (name, src, rep) in meta.items():

@@ -1,6 +1,6 @@
-"""astcenc_torch kernels K1-K9 against their plain PyTorch versions on a
-CUDA card, and encodes through the kernels against the plain path and with
-the refinement kernels switched off.
+"""astcenc_torch kernels K1-K8 and the colour pack kernel (K9) against their
+plain PyTorch versions on a CUDA card, and encodes through the kernels
+against the plain path and with the refinement kernels switched off.
 Needs a card (the kernels have no CPU build) and no jax, so it also runs
 where jax is missing:
 
@@ -364,16 +364,48 @@ def test_refine_round2_kernels_match_plain(cuda_device):
         assert (got[u] == want[u]).all()
 
 
-def test_quant_lookup_kernel_matches_plain(cuda_device):
-    """K9, bit for bit, clamping included."""
-    from astcenc_torch.ops import gather
-    rng = np.random.RandomState(12)
-    q = torch.from_numpy(rng.randint(-2, 19, 70000).astype(np.int32)).to(
-        cuda_device)
-    v = torch.from_numpy(rng.randint(-20, 280, (70000, 9)).astype(
-        np.int32)).to(cuda_device)
-    assert (gather.quant_lookup_cuda(q, v)
-            == gather.quant_lookup_plain(q, v)).all()
+@pytest.mark.parametrize("profile", [0, 2, 3])
+def test_color_pack_kernel_matches_plain(cuda_device, profile):
+    """The colour pack kernel against the plain pack, bit for bit, on the
+    seeded batch with the pack's corner cases (testdata.pack_batch: every
+    format at every quant level, endpoints at 0 and 65535, major-component
+    ties, rgbo vectors at each mode cutoff): one launch per pack call,
+    through both routers."""
+    from astcenc_torch.ops import color_pack as cp
+    from astcenc_torch.ops import color_pack_hdr as cph
+    b = [torch.from_numpy(a).to(cuda_device)
+         for a in testdata.pack_batch(30 + profile, 20000, corners=True)]
+    n0 = cp.launches
+    got = cph.pack_color_endpoints(profile, *b)
+    assert cp.launches == n0 + 1
+    want = cph.pack_color_endpoints_plain(profile, *b)
+    assert (got[0] == want[0]).all() and (got[1] == want[1]).all()
+    got = cp.pack_color_endpoints_ldr(b[0], b[1], b[2], b[4], b[5])
+    assert cp.launches == n0 + 2
+    want = cp.pack_color_endpoints_ldr_plain(b[0], b[1], b[2], b[4], b[5])
+    assert (got[0] == want[0]).all() and (got[1] == want[1]).all()
+
+
+def test_hdr_ch_crop_kernels_match_plain(cuda_device):
+    """A 256x256 -ch crop through the kernels (the colour pack kernel on
+    every pack) and through the plain versions: every block identical."""
+    ctx = _hdr_ctx(cuda_device)
+    img = testdata.synthetic_hdr_image(256, 256, 4, independent_alpha=True)
+    got = api.compress_image(ctx, img)
+    want = tc.compress_image(ctx, img, use_kernels=False)
+    assert (got == want).all()
+
+
+def test_refine_off_ldr_crop_kernels_match_plain(cuda_device, monkeypatch):
+    """A 256x256 LDR crop with the refinement kernels off (the plain
+    refinement, its realign lookups on K8 and its packs on the colour pack
+    kernel) against the plain versions: every block identical."""
+    ctx = _medium_ctx(cuda_device)
+    img = testdata.synthetic_image(256, 256, 5, independent_alpha=True)
+    got, n = _refine_off(monkeypatch, ctx, img)
+    assert n["K8"] > 0 and n["K9"] > 0, n
+    want = tc.compress_image(ctx, img, use_kernels=False)
+    assert (got == want).all()
 
 
 def test_hdr_encode_kernels_match_plain(cuda_device):
@@ -400,11 +432,12 @@ def test_main_path_encode_kernels_match_plain(cuda_device):
     assert (got == want).all(1).mean() >= 0.99
 
 
+@pytest.mark.parametrize("itype", ["int32", "int64"])
 @pytest.mark.parametrize("dtype,C", [("int32", None), ("int32", 2),
                                      ("float32", None), ("float32", 2)])
-def test_row_gather_kernel_matches_plain(cuda_device, dtype, C):
-    """K8, bit for bit: out-of-range indices, and float32 NaN payloads,
-    +-Inf, -0.0 and denormals."""
+def test_row_gather_kernel_matches_plain(cuda_device, dtype, C, itype):
+    """K8, bit for bit, with int32 and int64 indices: out-of-range indices,
+    and float32 NaN payloads, +-Inf, -0.0 and denormals."""
     from astcenc_torch.ops import gather
     rng = np.random.RandomState(13)
     shape = (3000, 300) + ((C,) if C else ())
@@ -418,7 +451,10 @@ def test_row_gather_kernel_matches_plain(cuda_device, dtype, C):
                          0xFF800000, 0x80000000, 0x00000001, 0x807FFFFF],
                         np.uint32)
         flat[rng.choice(flat.size, 800, replace=False)] = np.tile(bits, 100)
-    idx = rng.randint(-40, 340, (3000, 200)).astype(np.int32)
+    idx = rng.randint(-40, 340, (3000, 200)).astype(itype)
+    if itype == "int64":
+        idx[::97, 3] = -2 ** 40                # clamped in 64 bits
+        idx[1::97, 5] = 2 ** 40
     r = torch.from_numpy(rows).to(cuda_device)
     i = torch.from_numpy(idx).to(cuda_device)
     n0 = gather.launches_rows
@@ -434,13 +470,14 @@ def test_row_gather_kernel_matches_plain(cuda_device, dtype, C):
 def _refine_off(monkeypatch, ctx, img, value="refine"):
     """Encode with ASTC_DISABLE_KERNELS=value; the blocks and the launches
     of every kernel during that encode."""
-    from astcenc_torch.ops import gather, refine
+    from astcenc_torch.ops import color_pack, gather, refine
     mods = {"K1": (msearch, "launches"), "K2": (refine, "launches"),
             "K3": (refine, "launches2"), "K4": (psearch, "launches"),
             "K5": (refine, "launches_round1"),
             "K6": (refine, "launches_round2"),
             "K7": (refine, "launches_boot2"),
-            "K8": (gather, "launches_rows"), "K9": (gather, "launches")}
+            "K8": (gather, "launches_rows"),
+            "K9": (color_pack, "launches")}
     before = {k: getattr(m, a) for k, (m, a) in mods.items()}
     with monkeypatch.context() as m:
         m.setenv("ASTC_DISABLE_KERNELS", value)

@@ -1,6 +1,7 @@
 """HDR ops of astcenc_torch against the JAX package on the CPU, bit for bit:
-the softfloat conversions, the HDR endpoint unpack, the HDR colour pack and
-the plain version of kernel K9 (the colour quantizer lookup). The colour
+the softfloat conversions, the HDR endpoint unpack, the colour pack (the
+plain version of the colour pack kernel, every profile) and the colour
+quantizer lookup. The colour
 error tables agree within 1e-6 and the HDR refits within 1e-5 of each
 vector's largest component. Inputs are seeded with numpy and handed to
 both.
@@ -19,6 +20,7 @@ from astcenc_tpu.ops import color_unquant as jcuq
 from astcenc_tpu.ops import formats as jfmt
 from astcenc_tpu.ops import recompute as jrec
 from astcenc_tpu.ops import softfloat as jsf
+from astcenc_torch import testdata
 from astcenc_torch.ops import color_pack_hdr as tcph
 from astcenc_torch.ops import color_unquant as tcuq
 from astcenc_torch.ops import formats as tfmt
@@ -83,37 +85,24 @@ def test_unpack_hdr_matches_jax(profile):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-def _endpoints(rng, n):
-    """Seeded HDR endpoint pairs in the LNS-code domain: mostly ordered
-    pairs at every brightness, some wide, some equal, some out of range."""
-    base = rng.uniform(0.0, 65535.0, (n, 1)).astype(np.float32)
-    spread = np.exp2(rng.uniform(0, 16, (n, 1))).astype(np.float32)
-    ep0 = base + rng.normal(0, 1, (n, 4)).astype(np.float32) * spread * 0.05
-    ep1 = ep0 + np.abs(rng.normal(0, 1, (n, 4))).astype(np.float32) * spread
-    ep1[: n // 16] = ep0[: n // 16]
-    ep0[n // 16: n // 8] -= 3000.0
-    rgbs = np.concatenate([ep1[:, :3], rng.uniform(0, 1, (n, 1))], 1)
-    rgbo = np.concatenate([ep0[:, :3], np.abs(ep1[:, 3:] - ep0[:, 3:])], 1)
-    return (ep0.astype(np.float32), ep1.astype(np.float32),
-            rgbs.astype(np.float32), rgbo.astype(np.float32))
-
-
-@pytest.mark.parametrize("profile", [2, 3])
+@pytest.mark.parametrize("profile", [0, 2, 3])
 def test_pack_hdr_matches_jax(profile):
-    rng = np.random.default_rng(10 + profile)
-    n = 4096
-    ep0, ep1, rgbs, rgbo = _endpoints(rng, n)
-    req = rng.choice(np.array([0, 2, 3, 4, 6, 7, 8, 10, 11, 12, 14, 15],
-                              np.int32), n)
-    ql = rng.integers(4, 21, n).astype(np.int32)
+    """The plain pack on ``testdata.pack_batch``'s seeded rows and corner
+    cases (endpoints at 0 and 65535, major-component ties, rgbo vectors at
+    every mode cutoff, every format at every quant level): the batch the
+    card compares the colour pack kernel with."""
+    batch = testdata.pack_batch(10 + profile, 4096, corners=True)
     fn = jax.jit(jcph.pack_color_endpoints, static_argnums=0)
-    wf, wv = fn(profile, *map(jnp.asarray, (ep0, ep1, rgbs, rgbo, req, ql)))
-    gf, gv = tcph.pack_color_endpoints(profile, *map(_t, (ep0, ep1, rgbs,
-                                                          rgbo, req, ql)))
+    wf, wv = fn(profile, *map(jnp.asarray, batch))
+    gf, gv = tcph.pack_color_endpoints(profile, *map(_t, batch))
     np.testing.assert_array_equal(gf.numpy(), np.asarray(wf))
     np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
-    # Every HDR format the packer can emit came out.
-    assert set(tcuq.HDR_FORMATS) <= set(gf.numpy().tolist())
+    # Every format the packer can emit came out (it never emits
+    # FMT_LUMINANCE_DELTA).
+    emitted = set(gf.numpy().tolist())
+    assert {0, 4, 5, 6, 8, 9, 10, 12, 13} <= emitted
+    if profile >= 2:
+        assert set(tcuq.HDR_FORMATS) <= emitted
 
 
 def test_quant_lookup_plain_matches_jax():
@@ -122,7 +111,7 @@ def test_quant_lookup_plain_matches_jax():
     v = rng.integers(-20, 280, (512, 72)).astype(np.int32)
     qq = jcp.QuantQ(jnp.asarray(np.clip(q, 0, 16)))
     lh = np.asarray(qq.lookup(jnp.asarray(v)))
-    got = tgather.quant_lookup(_t(q), _t(v)).numpy()
+    got = tgather.quant_lookup_plain(_t(q), _t(v)).numpy()
     np.testing.assert_array_equal(got & 0xFF, lh[..., 0].astype(np.int32))
     np.testing.assert_array_equal(got >> 8, lh[..., 1].astype(np.int32))
 
@@ -140,7 +129,7 @@ def _rel_close(got, want, tol=1e-6):
 def test_color_error_tables_hdr(encode_hdr_alpha):
     rng = np.random.default_rng(7)
     N, P = 256, 2
-    ep0, ep1, _, _ = _endpoints(rng, N * P)
+    ep0, ep1, _, _ = testdata.endpoint_pairs(rng, N * P)
     ep0, ep1 = ep0.reshape(N, P, 4), ep1.reshape(N, P, 4)
     counts = rng.integers(1, 36, (N, P)).astype(np.int32)
     eci = {k: rng.uniform(0, 1e6, (N, P)).astype(np.float32)
