@@ -131,7 +131,7 @@ def stage1_1plane(ctx, texels, use_kernels: bool = True,
                            device=dev)
         const_color = torch.where(
             lns, sf.lns_to_sf16(tex0.to(torch.int32)),
-            sf.float_to_float16(tex0 / 65535.0))
+            sf.float_to_float16(sf.div(tex0, 65535.0)))
     else:
         const_color = torch.floor(torch.clamp(tex0 / 65535.0, 0.0, 1.0)
                                   * 65535.0 + 0.5).to(torch.int32)

@@ -152,6 +152,20 @@ def _sparse_stencils(dec_int_np):
     return tap_w, tap_i, wt_t, wt_i, wt_n
 
 
+def _packed_lists(wt_t, wt_i):
+    """(D, W, K) texel lists and factors -> (D, W, K) int16 t | f << 8
+    (K1's form; T <= 216 and factors <= 16)."""
+    return (wt_t | (wt_i << 8)).astype(np.int16)
+
+
+def _packed_taps(tap_w, tap_i):
+    """(D, T, 4) taps -> (D, T, 2) int32: the four weight indices and the
+    four factors, one per byte (K1's form)."""
+    sh = np.array([0, 8, 16, 24], np.int32)
+    return np.stack([(tap_w << sh).sum(-1), (tap_i << sh).sum(-1)],
+                    -1).astype(np.int32)
+
+
 _MOD_BITS = {1: 0, 2: 2, 3: 5, 4: 8}
 # Bits left for colour in a 2-plane block before weights (trial.py:989).
 FREE_BITS_2PLANE = 109
@@ -226,7 +240,8 @@ def pass_tables(et: EncoderTables, kind: str, pc: int, device):
     sin_t, cos_t = ang.sincos_tables()
     lo, hi = gather.quant_tables_np()
     pt.k = types.SimpleNamespace(
-        tap_w=t(tap_w), tap_i=t(tap_i), wt_t=t(wt_t), wt_i=t(wt_i),
+        tap_w=t(tap_w), tap_i=t(tap_i), taps=t(_packed_taps(tap_w, tap_i)),
+        wt_t=t(wt_t), wt_i=t(wt_i), wlist=t(_packed_lists(wt_t, wt_i)),
         wt_n=t(wt_n), wcount=t(wcount, torch.int32),
         maxprec=t(maxprec, torch.int32),
         modes=t(msearch_ops.mode_meta_array(meta)),

@@ -52,7 +52,7 @@ struct Args {
 };
 
 __host__ __device__ inline int warp_words(int T, int W) {
-  return 17 * T + 5 * W;
+  return 13 * T + realign_words(T, W) + 2 * W;
 }
 
 // 2x2 least-squares endpoints of one channel (recompute.py solve()).
@@ -88,16 +88,9 @@ refine2_kernel(Args a) {
   float* e0t = tex + 4 * T;
   float* e1t = e0t + 4 * T;
   float* scale_t = e1t + 4 * T;
-  RealignScratch x;
-  x.inf = scale_t + T;
-  x.At = x.inf + T;
-  x.Bt = x.At + T;
-  x.Ct = x.Bt + T;
-  x.dlt = x.Ct + T;
-  int* w1 = reinterpret_cast<int*>(x.dlt + W);
+  const RealignScratch x = realign_scratch(scale_t + T, T, W);
+  int* w1 = reinterpret_cast<int*>(scale_t + T + realign_words(T, W));
   int* w2 = w1 + W;
-  x.dn = w2 + W;
-  x.up = x.dn + W;
 
   for (int j = lane; j < 4 * T; j += 32)
     tex[j] = a.texels[(size_t)row * T * 4 + j];
@@ -110,6 +103,7 @@ refine2_kernel(Args a) {
   const Stencil st = stencil_of(a.tap_w, a.tap_i, a.wt_t, a.wt_i, a.wt_n,
                                 a.dm_color, a.dm[i], T, W, a.K);
   const int* pnq = a.pn + a.wq[i] * 65 * 2;
+  realign_classes(lane, W, a.ncolors, st, x);
   bool alive = a.alive[i];
   const int cqv = a.cq[i];
   const int freq = a.fmt_req[i];
@@ -282,6 +276,7 @@ extern "C" int astc_refine2(
     int ncolors, int u8_mask, int profile, float cw0, float cw1, float cw2,
     float cw3, int* out_i, float* out_e, void* stream) {
   if (N < 0 || N0 < 1 || C < 1 || W > 63 || T > 216 || R < 1
+      || ncolors < 0 || ncolors > kMaxClasses
       || (profile != 0 && profile != 1))
     return (int)cudaErrorInvalidValue;
   Args a{wg1, wg2, dm, wq, alive, cq, fmt_req, p2c, texels, mean, ep0, ep1,

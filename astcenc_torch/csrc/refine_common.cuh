@@ -1,8 +1,9 @@
-// Shared device code of kernels K2 (refine.cu) and K3 (refine2.cu): the LDR
-// colour pack and decode, the trial error and the parity-class realign of a
-// decimated weight grid. Every function runs redundantly on all 32 lanes
-// of a warp (scalar pack/decode, uniform branches) or splits texels and
-// weights over the lanes and reduces with warp shuffles.
+// Shared device code of kernels K2 (refine.cu), K3 (refine2.cu), K5
+// (refine_round.cu), K6 (refine_round2.cu) and the colour pack
+// (color_pack.cu): the LDR colour pack and decode, the trial error and the
+// parity-class realign of a decimated weight grid. The pack and decode are
+// scalar code for one thread; the trial error and the realign split
+// texels and weights over the lanes of a warp and reduce with shuffles.
 //
 // Arithmetic follows the plain PyTorch versions in ops/color_pack.py,
 // ops/color_unquant.py, ops/refine.py and ops/realign.py, sum for sum.
@@ -212,127 +213,142 @@ __device__ float encoding_error(const float* c0, const float* c1,
   return (t[0] + t[1]) + (t[2] + t[3]);
 }
 
-struct Trials {
-  float best_err = kBig;
-  int fmt = 0;
-  int out0[4] = {0, 0, 0, 0};
-  int out1[4] = {0, 0, 0, 0};
+// One of the four trial encodings of an RGB(A) pack: its encoding error,
+// whether it may be taken, its format and its values.
+struct RgbTrial {
+  float err;
+  int ok, fmt, e0[4], e1[4];
 };
 
-__device__ void consider(Trials& tr, const float* c0, const float* c1,
-                         bool with_alpha, bool ok, int fmt, const int* e0,
-                         const int* e1, bool delta) {
-  int u0[4], u1[4];
-  if (delta)
-    rgba_delta_unpack(e0, e1, u0, u1);
-  else
-    rgba_unpack(e0, e1, u0, u1);
-  if (!with_alpha) u0[3] = u1[3] = 255;
-  const float err = encoding_error(c0, c1, u0, u1);
-  if (ok && err < tr.best_err) {
-    tr.best_err = err;
-    tr.fmt = fmt;
-    for (int i = 0; i < 4; ++i) {
-      tr.out0[i] = e0[i];
-      tr.out1[i] = e1[i];
+// Trial k of pack_rgb_or_rgba (:1933-2096), in its order: 0 delta with
+// blue contract, 1 delta, 2 blue contract, 3 the quantize_rgb fallback.
+// K2 runs the four on four lanes; pack_rgb_or_rgba runs them in turn.
+template <class Q>
+__device__ void rgb_trial(const Q& q, const float* c0, const float* c1,
+                          bool with_alpha, int k, RgbTrial& t) {
+  int e0[4], e1[4], u0[4], u1[4];
+  bool ok = true;
+  if (k <= 1) {
+    const bool delta_ok_quant = q.qidx <= 18 - 4;
+    if (k == 0) {
+      float bc0[4], bc1[4];
+      blue_contract(c1, bc0);     // delta blue contract: swapped inputs
+      blue_contract(c0, bc1);
+      ok = in_range(bc0) && in_range(bc1);
+      ok = rgb_delta(q, bc0, bc1, true, e0, e1) && ok;
+    } else {
+      ok = rgb_delta(q, c0, c1, false, e0, e1);
     }
+    if (with_alpha) {
+      int a0, a1;
+      const bool oka = k == 0 ? chan_delta(q, c1[3], c0[3], &a0, &a1)
+                              : chan_delta(q, c0[3], c1[3], &a0, &a1);
+      e0[3] = a0;
+      e1[3] = a1;
+      ok = ok && oka;
+    }
+    ok = ok && delta_ok_quant;
+    t.fmt = with_alpha ? FMT_RGBA_DELTA : FMT_RGB_DELTA;
+    rgba_delta_unpack(e0, e1, u0, u1);
+  } else if (k == 2) {
+    // Blue contract, non-delta: outputs swap (and alpha swaps with them).
+    float bc0[4], bc1[4];
+    blue_contract(c0, bc0);
+    blue_contract(c1, bc1);
+    ok = in_range(bc0) && in_range(bc1);
+    for (int i = 0; i < 4; ++i) {
+      e1[i] = q.res(rtn(bc0[i]), bc0[i]);
+      e0[i] = q.res(rtn(bc1[i]), bc1[i]);
+    }
+    ok = ok && sum3(e0) > sum3(e1);
+    if (with_alpha) {
+      e0[3] = q.res(rtn(c1[3]), c1[3]);
+      e1[3] = q.res(rtn(c0[3]), c0[3]);
+    }
+    ok = ok && q.qidx < 16;
+    t.fmt = with_alpha ? FMT_RGBA : FMT_RGB;
+    rgba_unpack(e0, e1, u0, u1);
+  } else {
+    quantize_rgb(q, c0, c1, e0, e1);
+    if (with_alpha) {
+      e0[3] = q.res(rtn(c0[3]), c0[3]);
+      e1[3] = q.res(rtn(c1[3]), c1[3]);
+    }
+    t.fmt = with_alpha ? FMT_RGBA : FMT_RGB;
+    rgba_unpack(e0, e1, u0, u1);
   }
+  if (!with_alpha) u0[3] = u1[3] = 255;
+  t.err = encoding_error(c0, c1, u0, u1);
+  t.ok = ok ? 1 : 0;
+  for (int i = 0; i < 4; ++i) {
+    t.e0[i] = e0[i];
+    t.e1[i] = e1[i];
+  }
+}
+
+// pack_rgb_or_rgba's choice, fed trial k = 0, 1, 2, 3 in turn: the first
+// strict minimum of the first three that may be taken, then the fallback
+// where it is better or nothing was taken. Whether trial k is the choice
+// so far.
+__device__ __forceinline__ bool rgb_better(float& best, int k,
+                                           const RgbTrial& t) {
+  const bool take = k < 3 ? t.ok && t.err < best
+                          : t.err < best || best >= kBig;
+  if (take) best = t.err;
+  return take;
+}
+
+// The chosen trial's values, in pack order, and its format.
+__device__ __forceinline__ int rgb_emit(const RgbTrial& t, bool with_alpha,
+                                        int* vals) {
+  for (int i = 0; i < 4; ++i) {
+    vals[2 * i] = t.e0[i];
+    vals[2 * i + 1] = t.e1[i];
+  }
+  if (!with_alpha) vals[6] = vals[7] = 0;
+  return t.fmt;
+}
+
+// The choice among four trials held side by side (K2).
+__device__ int rgb_choose(const RgbTrial* t, bool with_alpha, int* vals) {
+  float best = kBig;
+  int pick = 3;
+  for (int k = 0; k < 4; ++k)
+    if (rgb_better(best, k, t[k])) pick = k;
+  return rgb_emit(t[pick], with_alpha, vals);
 }
 
 // FMT_RGB / FMT_RGBA with delta and blue-contract trials (:1933-2096).
 template <class Q>
 __device__ int pack_rgb_or_rgba(const Q& q, const float* c0,
                                 const float* c1, bool with_alpha, int* vals) {
-  Trials tr;
-  const bool delta_ok_quant = q.qidx <= 18 - 4;
-  int e0[4], e1[4];
-  float bc0[4], bc1[4];
-  blue_contract(c1, bc0);     // delta blue contract: swapped inputs
-  blue_contract(c0, bc1);
-  bool ok = in_range(bc0) && in_range(bc1);
-  ok = rgb_delta(q, bc0, bc1, true, e0, e1) && ok;
-  if (with_alpha) {
-    int a0, a1;
-    const bool oka = chan_delta(q, c1[3], c0[3], &a0, &a1);
-    e0[3] = a0;
-    e1[3] = a1;
-    consider(tr, c0, c1, true, ok && oka && delta_ok_quant, FMT_RGBA_DELTA,
-             e0, e1, true);
-  } else {
-    consider(tr, c0, c1, false, ok && delta_ok_quant, FMT_RGB_DELTA, e0, e1,
-             true);
+  RgbTrial t, pick;
+  float best = kBig;
+  for (int k = 0; k < 4; ++k) {
+    rgb_trial(q, c0, c1, with_alpha, k, t);
+    if (rgb_better(best, k, t)) pick = t;
   }
-  ok = rgb_delta(q, c0, c1, false, e0, e1);
-  if (with_alpha) {
-    int a0, a1;
-    const bool oka = chan_delta(q, c0[3], c1[3], &a0, &a1);
-    e0[3] = a0;
-    e1[3] = a1;
-    consider(tr, c0, c1, true, ok && oka && delta_ok_quant, FMT_RGBA_DELTA,
-             e0, e1, true);
-  } else {
-    consider(tr, c0, c1, false, ok && delta_ok_quant, FMT_RGB_DELTA, e0, e1,
-             true);
-  }
-  // Blue contract, non-delta: outputs swap (and alpha swaps with them).
-  blue_contract(c0, bc0);
-  blue_contract(c1, bc1);
-  ok = in_range(bc0) && in_range(bc1);
-  int i0[4], i1[4];
-  for (int i = 0; i < 4; ++i) {
-    i0[i] = q.res(rtn(bc0[i]), bc0[i]);
-    i1[i] = q.res(rtn(bc1[i]), bc1[i]);
-  }
-  ok = ok && sum3(i1) > sum3(i0);
-  if (with_alpha) {
-    i1[3] = q.res(rtn(c1[3]), c1[3]);
-    i0[3] = q.res(rtn(c0[3]), c0[3]);
-  }
-  consider(tr, c0, c1, with_alpha, ok && q.qidx < 16,
-           with_alpha ? FMT_RGBA : FMT_RGB, i1, i0, false);
-  // Fallback: taken whenever better or nothing chosen yet.
-  int f0[4], f1[4];
-  quantize_rgb(q, c0, c1, f0, f1);
-  if (with_alpha) {
-    f0[3] = q.res(rtn(c0[3]), c0[3]);
-    f1[3] = q.res(rtn(c1[3]), c1[3]);
-  }
-  int u0[4], u1[4];
-  rgba_unpack(f0, f1, u0, u1);
-  if (!with_alpha) u0[3] = u1[3] = 255;
-  const float err = encoding_error(c0, c1, u0, u1);
-  if (err < tr.best_err || tr.best_err >= kBig) {
-    tr.fmt = with_alpha ? FMT_RGBA : FMT_RGB;
-    for (int i = 0; i < 4; ++i) {
-      tr.out0[i] = f0[i];
-      tr.out1[i] = f1[i];
-    }
-  }
-  for (int i = 0; i < 4; ++i) {
-    vals[2 * i] = tr.out0[i];
-    vals[2 * i + 1] = tr.out1[i];
-  }
-  if (!with_alpha) vals[6] = vals[7] = 0;
-  return tr.fmt;
+  return rgb_emit(pick, with_alpha, vals);
 }
 
-// LDR pack_color_endpoints (:1909-2147) for one requested format, with the
-// tables of the row's quant level.
-template <class Q>
-__device__ int pack_ldr_q(const Q& q, const float* ep0, const float* ep1,
-                          const float* rgbs, int req_fmt, int* vals) {
-  float c0[4], c1[4];
+// The endpoints of one partition on the 0..255 scale of the LDR pack.
+__device__ __forceinline__ void ldr_colors(const float* ep0, const float* ep1,
+                                           float* c0, float* c1) {
   for (int i = 0; i < 4; ++i) {
     c0[i] = clampf(ep0[i], 0.f, 65535.f) / 257.f;
     c1[i] = clampf(ep1[i], 0.f, 65535.f) / 257.f;
   }
+}
+
+// The LDR pack of every requested format but FMT_RGB and FMT_RGBA, from
+// the endpoints on the 0..255 scale (ldr_colors). K2 runs this and the
+// RGB(A) trials apart, so it carries no dead copy of the other.
+template <class Q>
+__device__ int pack_ldr_other(const Q& q, const float* c0, const float* c1,
+                              const float* rgbs, int req_fmt, int* vals) {
   for (int i = 0; i < 8; ++i) vals[i] = 0;
   const float third = (float)(1.0 / 3.0);
   switch (req_fmt) {
-    case FMT_RGB:
-      return pack_rgb_or_rgba(q, c0, c1, false, vals);
-    case FMT_RGBA:
-      return pack_rgb_or_rgba(q, c0, c1, true, vals);
     case FMT_RGB_SCALE:
     case FMT_RGB_SCALE_ALPHA: {
       const float scale = (float)(1.0 / 257.0);
@@ -382,7 +398,19 @@ __device__ int pack_ldr_q(const Q& q, const float* ep0, const float* ep1,
   }
 }
 
-// pack_ldr_q with the (2, 17, 256) lo/hi tables in global memory (K2, K3).
+// LDR pack_color_endpoints (:1909-2147) for one requested format, with the
+// tables of the row's quant level.
+template <class Q>
+__device__ int pack_ldr_q(const Q& q, const float* ep0, const float* ep1,
+                          const float* rgbs, int req_fmt, int* vals) {
+  float c0[4], c1[4];
+  ldr_colors(ep0, ep1, c0, c1);
+  if (req_fmt == FMT_RGB || req_fmt == FMT_RGBA)
+    return pack_rgb_or_rgba(q, c0, c1, req_fmt == FMT_RGBA, vals);
+  return pack_ldr_other(q, c0, c1, rgbs, req_fmt, vals);
+}
+
+// pack_ldr_q with the (2, 17, 256) lo/hi tables in global memory (K3).
 __device__ int pack_ldr(const int* lohi, const float* ep0, const float* ep1,
                         const float* rgbs, int req_fmt, int quant_level,
                         int* vals) {
@@ -529,98 +557,153 @@ __device__ float trial_error(int lane, int T, const float* tex,
   return warp_sum(e);
 }
 
-// Scratch of one warp for realign(): per texel (T,) and per weight (W,).
+constexpr int kMaxClasses = 8;   // parity classes of a weight grid
+
+// Scratch of one warp for realign(): per texel (T,): inf, At, Bt, Ct; per
+// weight (W,): dlt, sc, dn, up, cls; cls_off (kMaxClasses + 1,).
 struct RealignScratch {
   float* inf;
   float* At;
   float* Bt;
   float* Ct;
   float* dlt;
+  float* sc;
   int* dn;
   int* up;
+  int* cls;      // class k's weights: cls[cls_off[k]..cls_off[k + 1])
+  int* cls_off;
 };
+
+// Words of a RealignScratch (floats and ints), laid out from p in the
+// order above.
+__host__ __device__ inline int realign_words(int T, int W) {
+  return 4 * T + 5 * W + kMaxClasses + 1;
+}
+
+__device__ inline RealignScratch realign_scratch(float* p, int T, int W) {
+  RealignScratch x;
+  x.inf = p;
+  x.At = x.inf + T;
+  x.Bt = x.At + T;
+  x.Ct = x.Bt + T;
+  x.dlt = x.Ct + T;
+  x.sc = x.dlt + W;
+  x.dn = reinterpret_cast<int*>(x.sc + W);
+  x.up = x.dn + W;
+  x.cls = x.up + W;
+  x.cls_off = x.cls + W;
+  return x;
+}
+
+// The weights of each parity class (those with texels), once per stencil:
+// every realign() of the same decimation reads these lists.
+__device__ void realign_classes(int lane, int W, int ncolors,
+                                const Stencil& s, const RealignScratch& x) {
+  int n = 0;                   // the same on every lane
+  for (int k = 0; k < ncolors; ++k) {
+    if (lane == 0) x.cls_off[k] = n;
+    for (int base = 0; base < W; base += 32) {
+      const int w = base + lane;
+      const bool in = w < W && s.wtn[w] > 0 && s.col[w] == k;
+      const unsigned m = __ballot_sync(kFull, in);
+      if (in) x.cls[n + __popc(m & ((1u << lane) - 1u))] = w;
+      n += __popc(m);
+    }
+  }
+  if (lane == 0) x.cls_off[ncolors] = n;
+  __syncwarp();
+}
 
 // Parity-class realign of one weight plane (ops/realign.py): the weights
 // of one parity class share no texel, so each class moves at once by one
 // quantization step up or down where that lowers the error. Channels with
 // their bit clear in chmask are not carried by this plane (offset zero).
+// Each texel's terms A, B are refreshed in the pass that moves its infill
+// (the next class reads only those); the last class's infill update, which
+// nothing reads, is skipped. Needs realign_classes() of the same stencil.
 // Returns whether any weight moved; wg is updated in place.
 __device__ bool realign(int lane, int T, int W, int ncolors, const float* tex,
                         const float* e0t, const float* e1t, unsigned chmask,
                         const float* cw, const Stencil& s, const int* pnq,
                         int* wg, const RealignScratch& x) {
+  auto off_of = [&](int t, int c) {
+    return ((chmask >> c) & 1u)
+               ? (e1t[t * 4 + c] - e0t[t * 4 + c]) * (1.f / 64.f) : 0.f;
+  };
+  auto terms = [&](int t, float inf) {
+    float A = 0.f, B = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float off = off_of(t, c);
+      const float diff = (e0t[t * 4 + c] + off * inf) - tex[t * 4 + c];
+      A += (diff * diff) * cw[c];
+      B += (diff * off) * cw[c];
+    }
+    x.At[t] = A;
+    x.Bt[t] = B;
+  };
   for (int t = lane; t < T; t += 32) {
-    x.inf[t] = infill_f(s, wg, t);
+    const float inf = infill_f(s, wg, t);
+    x.inf[t] = inf;
     float o[4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      o[c] = ((chmask >> c) & 1u)
-                 ? (e1t[t * 4 + c] - e0t[t * 4 + c]) * (1.f / 64.f) : 0.f;
+    for (int c = 0; c < 4; ++c) o[c] = off_of(t, c);
     x.Ct[t] = ((o[0] * o[0] * cw[0] + o[1] * o[1] * cw[1])
                + o[2] * o[2] * cw[2]) + o[3] * o[3] * cw[3];
+    terms(t, inf);
   }
   __syncwarp();
-  float sc_w[2];
-  for (int j = 0, w = lane; w < W; w += 32, ++j) {
+  for (int w = lane; w < W; w += 32) {
     const int v = clampi(wg[w], 0, 64);
     x.dn[w] = pnq[v * 2];
     x.up[w] = pnq[v * 2 + 1];
-    float sc = 0.f;
+    float c = 0.f;
     for (int k = 0; k < s.wtn[w]; ++k) {
       const float f = (float)s.wti[w * s.K + k] * 0.0625f;
-      sc += (f * f) * x.Ct[s.wtt[w * s.K + k]];
+      c += (f * f) * x.Ct[s.wtt[w * s.K + k]];
     }
-    sc_w[j] = sc;
+    x.sc[w] = c;
+    x.dlt[w] = 0.f;
   }
   __syncwarp();
   bool adjusted = false;
   for (int k = 0; k < ncolors; ++k) {
-    for (int t = lane; t < T; t += 32) {
-      float A = 0.f, B = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float off = ((chmask >> c) & 1u)
-            ? (e1t[t * 4 + c] - e0t[t * 4 + c]) * (1.f / 64.f) : 0.f;
-        const float diff = (e0t[t * 4 + c] + off * x.inf[t]) - tex[t * 4 + c];
-        A += (diff * diff) * cw[c];
-        B += (diff * off) * cw[c];
-      }
-      x.At[t] = A;
-      x.Bt[t] = B;
-    }
-    __syncwarp();
     bool moved = false;
-    for (int j = 0, w = lane; w < W; w += 32, ++j) {
-      float delta = 0.f;
-      if (s.wtn[w] > 0 && s.col[w] == k) {
-        float SA = 0.f, SB = 0.f;
-        for (int kk = 0; kk < s.wtn[w]; ++kk) {
-          const int t = s.wtt[w * s.K + kk];
-          SA += x.At[t];
-          SB += ((float)s.wti[w * s.K + kk] * 0.0625f) * x.Bt[t];
-        }
-        const int cur = wg[w];
-        const float d_dn = (float)(x.dn[w] - cur);
-        const float d_up = (float)(x.up[w] - cur);
-        const float e_dn = (SA + (2.f * d_dn) * SB) + (d_dn * d_dn) * sc_w[j];
-        const float e_up = (SA + (2.f * d_up) * SB) + (d_up * d_up) * sc_w[j];
-        const bool go_up = e_up < SA && e_up < e_dn && cur < 64;
-        const bool go_dn = !go_up && e_dn < SA && cur > 0;
-        const int nw = go_up ? x.up[w] : (go_dn ? x.dn[w] : cur);
-        delta = (float)(nw - cur);
-        wg[w] = nw;
-        moved = moved || go_up || go_dn;
+    for (int j = x.cls_off[k] + lane; j < x.cls_off[k + 1]; j += 32) {
+      const int w = x.cls[j];
+      float SA = 0.f, SB = 0.f;
+      for (int kk = 0; kk < s.wtn[w]; ++kk) {
+        const int t = s.wtt[w * s.K + kk];
+        SA += x.At[t];
+        SB += ((float)s.wti[w * s.K + kk] * 0.0625f) * x.Bt[t];
       }
-      x.dlt[w] = delta;
+      const int cur = wg[w];
+      const float d_dn = (float)(x.dn[w] - cur);
+      const float d_up = (float)(x.up[w] - cur);
+      const float e_dn = (SA + (2.f * d_dn) * SB) + (d_dn * d_dn) * x.sc[w];
+      const float e_up = (SA + (2.f * d_up) * SB) + (d_up * d_up) * x.sc[w];
+      const bool go_up = e_up < SA && e_up < e_dn && cur < 64;
+      const bool go_dn = !go_up && e_dn < SA && cur > 0;
+      const int nw = go_up ? x.up[w] : (go_dn ? x.dn[w] : cur);
+      x.dlt[w] = (float)(nw - cur);
+      wg[w] = nw;
+      moved = moved || go_up || go_dn;
     }
+    // The previous class's deltas are spent.
+    if (k > 0)
+      for (int j = x.cls_off[k - 1] + lane; j < x.cls_off[k]; j += 32)
+        x.dlt[x.cls[j]] = 0.f;
     adjusted = __any_sync(kFull, moved) || adjusted;
     __syncwarp();
+    if (k == ncolors - 1) break;
     for (int t = lane; t < T; t += 32) {
       float d = 0.f;
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         d += ((float)s.ti[t * 4 + kk] * 0.0625f) * x.dlt[s.tw[t * 4 + kk]];
-      x.inf[t] = x.inf[t] + d;
+      const float inf = x.inf[t] + d;
+      x.inf[t] = inf;
+      terms(t, inf);
     }
     __syncwarp();
   }

@@ -51,7 +51,7 @@ struct Args {
 };
 
 __host__ __device__ inline int warp_words(int T, int W) {
-  return 16 * T + 4 * W;
+  return 12 * T + realign_words(T, W) + W;
 }
 
 __global__ void __launch_bounds__(kWarps * 32)
@@ -69,15 +69,8 @@ refine_round_kernel(Args a) {
   float* tex = smem + warp * warp_words(T, W);   // (T, 4)
   float* e0t = tex + 4 * T;                      // (T, 4) decoded endpoints
   float* e1t = e0t + 4 * T;
-  RealignScratch x;
-  x.inf = e1t + 4 * T;
-  x.At = x.inf + T;
-  x.Bt = x.At + T;
-  x.Ct = x.Bt + T;
-  x.dlt = x.Ct + T;
-  int* wg = reinterpret_cast<int*>(x.dlt + W);
-  x.dn = wg + W;
-  x.up = x.dn + W;
+  const RealignScratch x = realign_scratch(e1t + 4 * T, T, W);
+  int* wg = reinterpret_cast<int*>(e1t + 4 * T + realign_words(T, W));
 
   for (int j = lane; j < 4 * T; j += 32)
     tex[j] = a.texels[(size_t)b * T * 4 + j];
@@ -99,6 +92,7 @@ refine_round_kernel(Args a) {
   float err_post = err_pre;
   bool adjusted = false;
   if (a.ncolors > 0 && a.alive[i]) {
+    realign_classes(lane, W, a.ncolors, st, x);
     adjusted = realign(lane, T, W, a.ncolors, tex, e0t, e1t, 0xFu, cw, st,
                        a.pn + a.wq[i] * 65 * 2, wg, x);
     err_post = trial_error(lane, T, tex, e0t, e1t, st, wg, wg, -1, cw, u8);
@@ -123,7 +117,7 @@ extern "C" int astc_refine_round(
     int W, int D, int K, int ncolors, int u8_mask, float cw0, float cw1,
     float cw2, float cw3, int* grid, int* adjusted, float* undec, float* err,
     void* stream) {
-  if (N < 0 || C < 1 || W > 64 || T > 216 || ncolors < 0 || ncolors > 8)
+  if (N < 0 || C < 1 || W > 64 || T > 216 || ncolors < 0 || ncolors > kMaxClasses)
     return (int)cudaErrorInvalidValue;
   Args a{wgrid, dm, wq, alive, ep0, ep1, texels, pot, tap_w, tap_i, wt_t,
          wt_i, wt_n, dm_color, pn, N, C, T, W, D, K, ncolors, u8_mask,

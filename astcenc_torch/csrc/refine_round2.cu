@@ -58,7 +58,7 @@ struct Args {
 };
 
 __host__ __device__ inline int warp_words(int T, int W) {
-  return 16 * T + 5 * W;
+  return 12 * T + realign_words(T, W) + 2 * W;
 }
 
 __global__ void __launch_bounds__(kWarps * 32)
@@ -78,16 +78,9 @@ refine_round2_kernel(Args a) {
   float* tex = smem + warp * warp_words(T, W);   // (T, 4)
   float* e0t = tex + 4 * T;
   float* e1t = e0t + 4 * T;
-  RealignScratch x;
-  x.inf = e1t + 4 * T;
-  x.At = x.inf + T;
-  x.Bt = x.At + T;
-  x.Ct = x.Bt + T;
-  x.dlt = x.Ct + T;
-  int* w1 = reinterpret_cast<int*>(x.dlt + W);
+  const RealignScratch x = realign_scratch(e1t + 4 * T, T, W);
+  int* w1 = reinterpret_cast<int*>(e1t + 4 * T + realign_words(T, W));
   int* w2 = w1 + W;
-  x.dn = w2 + W;
-  x.up = x.dn + W;
 
   for (int j = lane; j < 4 * T; j += 32) {
     tex[j] = a.texels[(size_t)row * T * 4 + j];
@@ -110,6 +103,7 @@ refine_round2_kernel(Args a) {
   if (a.alive[i]) {
     const int* pnq = a.pn + a.wq[i] * 65 * 2;
     const unsigned m2c = 1u << p2c;
+    realign_classes(lane, W, a.ncolors, st, x);
     const bool a1 = realign(lane, T, W, a.ncolors, tex, e0t, e1t,
                             0xFu & ~m2c, cw, st, pnq, w1, x);
     const bool a2 = realign(lane, T, W, a.ncolors, tex, e0t, e1t, m2c, cw,
@@ -173,7 +167,7 @@ extern "C" int astc_refine_round2(
     int u8_mask, float cw0, float cw1, float cw2, float cw3, int* g1,
     int* g2, int* adjusted, float* u1, float* u2, float* err, void* stream) {
   if (N < 0 || N0 < 1 || C < 1 || W > 63 || T > 216 || ncolors < 1
-      || ncolors > 8)
+      || ncolors > kMaxClasses)
     return (int)cudaErrorInvalidValue;
   Args a{wg1, wg2, dm, wq, alive, p2c, ep0, ep1, texels, tap_w, tap_i, wt_t,
          wt_i, wt_n, dm_color, pn, N, N0, C, T, W, D, K, ncolors, u8_mask,

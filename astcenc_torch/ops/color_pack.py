@@ -30,6 +30,7 @@ from ..tables import ise
 from . import _build
 from . import color_unquant as cuq
 from . import gather
+from . import softfloat as sf
 
 _BIG = 1e30
 
@@ -61,22 +62,9 @@ class _Q:
         return torch.where((vf - v.to(torch.float32)) >= -0.1, hi, lo)
 
 
-def div(x, d: float):
-    """x / d, the float32 quotient on every device. On CUDA tensors PyTorch
-    multiplies by the reciprocal when the divisor is a Python or CPU
-    scalar, which can miss the quotient by one bit; a divisor on the
-    tensor's own device divides, as the CPU, the JAX package and the colour
-    pack kernel do. (Powers of two need no such care.)"""
-    return x / torch.full((), d, dtype=x.dtype, device=x.device)
-
-
 def _rtn(x):
     """float_to_int_rtn: floor(x + 0.5); torch.round rounds half to even."""
     return torch.floor(x + 0.5).to(torch.int32)
-
-
-def _sum3(v):
-    return v[..., 0] + v[..., 1] + v[..., 2]
 
 
 def _set3(v, a):
@@ -101,7 +89,7 @@ def _quantize_rgb(c0, c1, q: _Q):
                 q.color_res(torch.clamp(_rtn(b), max=255), b))
 
     o0, o1 = ev(c0, c1)
-    done = _sum3(o0) <= _sum3(o1)
+    done = sf.sum3(o0) <= sf.sum3(o1)
     step, K = 0, 4                             # steps taken; this pass's
     while not bool(done.all()):
         a, b = [], []
@@ -112,7 +100,7 @@ def _quantize_rgb(c0, c1, q: _Q):
             b.append(c1)
         a, b = ev(torch.stack(a, 1), torch.stack(b, 1))   # (B, K, 4)
         steps = step + torch.arange(1, K + 1, device=c0.device)
-        ok = (_sum3(a) <= _sum3(b)) & (steps <= _NUDGE_LIMIT)
+        ok = (sf.sum3(a) <= sf.sum3(b)) & (steps <= _NUDGE_LIMIT)
         first = ok.to(torch.int32).argmax(1)
         take = ok.any(1) & ~done
         # A lane unordered through step 2049 takes that step's c1 for both.
@@ -143,7 +131,7 @@ def _try_rgb_delta(c0, c1, q: _Q):
     d = (c1de >> 1) & 0x3F
     d = torch.where((d & 0x20) != 0, d - 0x40, d)
     base = (c0be >> 1) | (c1de & 0x80)
-    ok &= _sum3(d) >= 0
+    ok &= sf.sum3(d) >= 0
     s = base + d
     ok &= ((s[..., :3] >= 0) & (s[..., :3] <= 0xFF)).all(-1)
     return ok, c0be, c1de
@@ -182,7 +170,7 @@ def _try_rgb_blue_contract(c0, c1, q: _Q):
     ok = _in_range(c0b) & _in_range(c1b)
     c0i = q.color_res(_rtn(c0b), c0b)
     c1i = q.color_res(_rtn(c1b), c1b)
-    ok &= _sum3(c1i) > _sum3(c0i)
+    ok &= sf.sum3(c1i) > sf.sum3(c0i)
     return ok, c1i, c0i
 
 
@@ -203,7 +191,7 @@ def _try_rgb_delta_blue_contract(c0in, c1in, q: _Q):
     d = (c1de >> 1) & 0x3F
     d = torch.where((d & 0x20) != 0, d - 0x40, d)
     base = (c0be >> 1) | (c1de & 0x80)
-    ok &= _sum3(d) < 0
+    ok &= sf.sum3(d) < 0
     s = base + d
     ok &= ((s[..., :3] >= 0) & (s[..., :3] <= 0xFF)).all(-1)
     return ok, c0be, c1de
@@ -290,7 +278,7 @@ def _pack_rgbs(rgbs, q: _Q):
     scale = 1.0 / 257.0
     rgb = torch.clamp(rgbs[..., :3] * scale, 0.0, 255.0)
     qv = q.color_res(_rtn(rgb), rgb)
-    oldsum = _sum3(rgbs) * scale
+    oldsum = sf.sum3(rgbs) * scale
     newsum = qv.sum(-1).to(torch.float32)
     scalea = torch.clamp(rgbs[..., 3] * (oldsum + 1e-10) / (newsum + 1e-10),
                          0.0, 1.0)
@@ -299,7 +287,7 @@ def _pack_rgbs(rgbs, q: _Q):
 
 
 def _lum(c):
-    return _sum3(c) * np.float32(1.0 / 3.0)
+    return sf.sum3(c) * np.float32(1.0 / 3.0)
 
 
 def _pack_luminance(c0, c1, q: _Q):
@@ -356,8 +344,8 @@ def pack_color_endpoints_ldr_plain(ep0, ep1, rgbs, req_fmt, quant_level):
     Returns (fmt (B,) int32, values (B, 8) int32 in 0..255).
     """
     q = _Q(torch.clamp(quant_level - ise.QUANT_6, 0, 16))
-    c0 = div(torch.clamp(ep0, 0.0, 65535.0), 257.0)
-    c1 = div(torch.clamp(ep1, 0.0, 65535.0), 257.0)
+    c0 = sf.div(torch.clamp(ep0, 0.0, 65535.0), 257.0)
+    c1 = sf.div(torch.clamp(ep1, 0.0, 65535.0), 257.0)
     B = ep0.shape[0]
     dev = ep0.device
     z8 = torch.zeros((B, 8), dtype=torch.int32, device=dev)

@@ -21,6 +21,7 @@ import torch
 from ..tables import ise
 from . import color_pack as cp
 from . import color_unquant as cuq
+from . import softfloat as sf
 
 _THIRD = torch.tensor(1.0 / 3.0, dtype=torch.float32).item()
 
@@ -33,10 +34,6 @@ def _rtn_trunc(x):
     """astc::flt2int_rtn of a possibly negative value: C's (int)(v + 0.5f)
     truncates toward zero (reference astcenc_mathlib.h:328-332)."""
     return torch.trunc(x + 0.5).to(torch.int32)
-
-
-def _sum3(c):
-    return (c[:, 0] + c[:, 1]) + c[:, 2]
 
 
 def _retain_top_bits(q, value, top_mask: int, max_steps: int = 72):
@@ -275,8 +272,8 @@ def quantize_hdr_rgb(c0, c1, q):
 
 
 def _lum_pair(c0, c1):
-    lum0 = cp.div(_sum3(c0), 3.0)
-    lum1 = cp.div(_sum3(c1), 3.0)
+    lum0 = sf.div(sf.sum3(c0), 3.0)
+    lum1 = sf.div(sf.sum3(c1), 3.0)
     swap = lum1 < lum0
     avg = (lum0 + lum1) * 0.5
     return (_rtn(torch.where(swap, avg, lum0)),
@@ -381,7 +378,7 @@ def pack_color_endpoints_hdr(ep0, ep1, rgbo, req_fmt, quant_level):
     v_lum = pad8(torch.where(sm_ok[:, None], sm_vals, lg_vals))
     f_lum = torch.where(sm_ok, cuq.FMT_HDR_LUMINANCE_SMALL_RANGE,
                         cuq.FMT_HDR_LUMINANCE_LARGE_RANGE)
-    a = torch.clamp(cp.div(torch.stack([ep0[:, 3], ep1[:, 3]], -1), 257.0),
+    a = torch.clamp(sf.div(torch.stack([ep0[:, 3], ep1[:, 3]], -1), 257.0),
                     0.0, 255.0)
     v_rgba_ldr = torch.cat([v_rgb6, q.color_res(_rtn(a), a)], 1)
     v_rgba_hdr = torch.cat([v_rgb6, quantize_hdr_alpha(ep0[:, 3], ep1[:, 3],

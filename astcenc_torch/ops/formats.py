@@ -16,6 +16,7 @@ import torch
 
 from . import color_unquant as cuq
 from . import ideal as ideal_ops
+from . import softfloat as sf
 
 QUANT_6 = 4
 ERROR_CALC_DEFAULT = 1e30
@@ -91,7 +92,7 @@ def color_error_tables_ldr(eci, ep0, ep1, counts, channel_weight):
     e0l = torch.clamp(ep0, max=0.0)
     e1l = torch.clamp(ep1, max=0.0)
     sum_range = e0l * e0l + e1l * e1l + e0h * e0h + e1h * e1h
-    rgb_range_error = (sum_range[..., :3] * cw3).sum(-1) * 0.5 * psize
+    rgb_range_error = sf.sum3(sum_range[..., :3] * cw3) * 0.5 * psize
     alpha_range_error = sum_range[..., 3] * cw_a * 0.5 * psize
     base_rgb = ew_rgbsum * psize
     base_a = cw_a * psize
@@ -158,7 +159,7 @@ def color_error_tables_hdr(eci, ep0, ep1, counts, channel_weight,
     e0l = torch.clamp(ep0, max=0.0)
     e1l = torch.clamp(ep1, max=0.0)
     sum_range = e0l * e0l + e1l * e1l + e0h * e0h + e1h * e1h
-    rgb_range_error = (sum_range[..., :3] * cw3).sum(-1) * 0.5 * psize
+    rgb_range_error = sf.sum3(sum_range[..., :3] * cw3) * 0.5 * psize
     alpha_range_error = sum_range[..., 3] * cw_a * 0.5 * psize
 
     # Statistics of the RGBO and RGB submode estimates (reference :382-512)
@@ -194,8 +195,7 @@ def color_error_tables_hdr(eci, ep0, ep1, counts, channel_weight,
                             torch.exp2(2.0 * (3 - rgb_mode // 2)))
     mode7mult = rgbo_scale * 0.0015
     mode11mult = rgb_scale * 0.010
-    lumdif = (ep1[..., 0] + ep1[..., 1] + ep1[..., 2]) / 3.0 \
-        - (ep0[..., 0] + ep0[..., 1] + ep0[..., 2]) / 3.0
+    lumdif = sf.div(sf.sum3(ep1), 3.0) - sf.div(sf.sum3(ep0), 3.0)
     mode23mult = torch.where(lumdif < 960, 4.0,
                              torch.where(lumdif < 3968, 16.0, 128.0)) * 0.0005
 

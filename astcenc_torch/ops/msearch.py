@@ -12,14 +12,22 @@ the best format combination per total integer count, and each mode also
 gets the quant level of the matched-format encoding) and 2-plane passes
 (both planes' grids and errors per mode).
 
-On the card (``csrc/msearch.cu``) one warp handles one block, lanes over
-weights and texels, with the block's ideal weights, decimated grids and
-angular ranges in shared memory and the decimation stencils in the sparse
-form the format defines (at most 4 taps per texel). The work per block is
-a few thousand dependent float operations and warp reductions, read from a
-few hundred bytes of input: the kernel is bound by instruction latency,
-not by memory, so its design keeps every intermediate on chip and fills
-the card with one warp per block (2048x2048 at 6x6 is ~117k warps).
+On the card (``csrc/msearch.cu``) a CTA of 256 threads takes a few blocks
+at a time and splits each step of the search into independent items, one
+thread each, between barriers: the ideal weights over (decimation, weight),
+the angular sums over (decimation, step), the first minimum over steps per
+(decimation, level), the modes over (block, mode) with one thread
+quantizing and scoring a whole grid, the top C by C rounds of argmin at
+the end, and the winners' grids recomputed over (candidate, weight). The
+stencil taps (where they fit) stay in shared memory for the CTA's life,
+the blocks' ideal weights, ranges and mode totals beside them. The work
+is a few hundred thousand dependent float operations per block from a
+few hundred bytes of input: the kernel is
+bound by instruction issue and latency, not by memory, and its design
+trades the warp-per-block kernel's serial steps, warp reductions and
+32-fold repeated comparisons for parallel items. Every sum keeps that
+kernel's order (its lane-strided partial sums and butterfly, emulated in
+one thread), so its outputs are unchanged bit for bit.
 
 The angular offsets use the same 64 x 32 sin/cos tables as the JAX XLA
 path and ``atan2f`` from CUDA's libm (the XLA path uses arctan2); the
@@ -192,7 +200,7 @@ def _lib():
     lib = _build.load("msearch")
     if not getattr(lib, "_astc_typed", False):
         lib.astc_msearch.restype = ctypes.c_int
-        lib.astc_msearch.argtypes = [ctypes.c_void_p] * 21 + [
+        lib.astc_msearch.argtypes = [ctypes.c_void_p] * 19 + [
             ctypes.c_int] * 10 + [ctypes.c_void_p] * 3
         lib.astc_error_string.restype = ctypes.c_char_p
         lib.astc_error_string.argtypes = [ctypes.c_int]
@@ -227,25 +235,24 @@ def mode_search_cuda(pt, wei, wes, mcut, maxwq, comb_err, comb_fmt, C: int,
     _build.check(comb_fmt, "comb_fmt", i32,
                  (N, 21, 4) if pc == 1 else (N, 21, S, pc))
     dev = wei.device
-    if k.tap_w.device != dev:
-        raise ValueError(f"pass tables on {k.tap_w.device}, inputs on {dev}")
+    if k.taps.device != dev:
+        raise ValueError(f"pass tables on {k.taps.device}, inputs on {dev}")
     out_i = torch.empty((N, C, 16 + W * (2 if two else 1)), dtype=i32,
                         device=dev)
     out_e = torch.empty((N, C), dtype=f32, device=dev)
     lib = _lib()
     if N:
-        stream = torch.cuda.current_stream(dev).cuda_stream
         p = _build.ptr
         none = ctypes.c_void_p(0)
         rc = lib.astc_msearch(
             p(wei), p(wes), p(mcut), p(wei2) if two else none,
             p(wes2) if two else none, p(mcut2) if two else none, p(maxwq),
-            p(comb_err), p(comb_fmt),
-            p(k.tap_w), p(k.tap_i), p(k.wt_t), p(k.wt_i), p(k.wt_n),
-            p(k.wcount), p(k.maxprec), p(k.modes), p(k.unq), p(k.sin_t),
-            p(k.cos_t), p(k.levels_used),
+            p(comb_err), p(comb_fmt), p(k.taps), p(k.wlist), p(k.wt_n),
+            p(k.wcount), p(k.maxprec), p(k.modes), p(k.unq),
+            p(k.sin_t), p(k.cos_t), p(k.levels_used),
             N, T, W, D, k.wt_t.shape[2], k.modes.shape[0], C, S, pc,
-            int(two), p(out_i), p(out_e), ctypes.c_void_p(stream))
+            int(two), p(out_i), p(out_e),
+            ctypes.c_void_p(_build.stream(dev.index)))
         if rc != 0:
             raise RuntimeError("msearch kernel launch failed: "
                                + lib.astc_error_string(rc).decode())

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from . import softfloat as sf
+
 
 def lane_sum(x, dim: int):
     """Sum over ``dim`` in the order of a 32-lane warp reduction: element t
@@ -42,10 +44,6 @@ def _psum(pmask, x):
     if x.dim() == 2:
         return lane_sum(pmask * x[..., None], 1)
     return lane_sum(pmask[..., None] * x[:, :, None, :], 1)
-
-
-def _sum3(v):
-    return (v[..., 0] + v[..., 1]) + v[..., 2]
 
 
 def recompute_ideal_colors_1plane(texels, pmask, counts, undec_weights,
@@ -75,10 +73,10 @@ def recompute_ideal_colors_1plane(texels, pmask, counts, undec_weights,
     mean_rgb = (rgba_sum / rgba_weight_sum)[..., :3]
     # Correctly rounded float32 sqrt, as sqrtf in the kernel (the CPU
     # float32 torch.sqrt is not).
-    norm = torch.sqrt(_sum3(mean_rgb * mean_rgb).double()).float()[..., None]
+    norm = torch.sqrt(sf.sum3(mean_rgb * mean_rgb).double()).float()[..., None]
     scale_dir = mean_rgb / torch.where(norm > 0, norm, 1.0)
     scale_dir_t = torch.einsum("ntp,npc->ntc", pmask, scale_dir)
-    scale = _sum3(scale_dir_t * texels[..., :3])
+    scale = sf.sum3(scale_dir_t * texels[..., :3])
 
     big = 1e10
     inpart = pmask.transpose(1, 2) > 0
@@ -151,10 +149,10 @@ def _rgbo(rgba_ws, wws, cvx, cvy, psum, ep0, ep1):
     """The RGBO vector of FMT_HDR_RGB_SCALE (reference :1099-1143, JAX
     recompute.py:133-145, :263-277): the structured 4x4 solve, or where
     it gives NaN the endpoints' midpoint and mean RGB difference."""
-    rgbq = torch.cat([(cvx + cvy)[..., :3], _sum3(cvy)[..., None]], -1)
+    rgbq = torch.cat([(cvx + cvy)[..., :3], sf.sum3(cvy)[..., None]], -1)
     rgbo = _compute_rgbo(rgba_ws, wws, rgbq, psum)
     bad = torch.isnan((rgbo * rgbo).sum(-1))
-    avgdif = torch.clamp(_sum3(ep1 - ep0) / 3.0, min=0.0)
+    avgdif = torch.clamp(sf.div(sf.sum3(ep1 - ep0), 3.0), min=0.0)
     ep0b = (ep0 + ep1) * 0.5 - avgdif[..., None] * 0.5
     fallback = torch.cat([ep0b[..., :3], avgdif[..., None]], -1)
     return torch.where(bad[..., None], fallback, rgbo)
@@ -214,9 +212,9 @@ def recompute_ideal_colors_2planes(texels, undec_w1, undec_w2, p2c,
 
     rgba_weight_sum = torch.clamp(cw * T, min=1e-17)
     mean_rgb = data_mean[..., :3]
-    norm = torch.sqrt(_sum3(mean_rgb * mean_rgb).double()).float()[:, None]
+    norm = torch.sqrt(sf.sum3(mean_rgb * mean_rgb).double()).float()[:, None]
     scale_dir = mean_rgb / torch.where(norm > 0, norm, 1.0)
-    scale = _sum3(scale_dir[:, None, :] * texels[..., :3])      # (N, T)
+    scale = sf.sum3(scale_dir[:, None, :] * texels[..., :3])      # (N, T)
     scale_min = scale.amin(1)
     scale_max = scale.amax(1)
 
@@ -286,5 +284,5 @@ def recompute_ideal_colors_2planes(texels, undec_w1, undec_w2, p2c,
         www = lane_sum(color_idx, 1) + 1e-17
         rsel = torch.where(p2_mask, r2[:, None], r1[:, None]) * cw
         out["rgbo"] = _rgbo(rgba_weight_sum.expand(N, 4), www * cw, cvx, cvy,
-                            _sum3(rsel), ep0, ep1)
+                            sf.sum3(rsel), ep0, ep1)
     return out

@@ -25,15 +25,20 @@ quant level the shared format field frees); K3 one partition and two
 planes, both realigned against one stencil, each under its plane mask.
 
 On the card (``csrc/refine.cu``, ``csrc/refine2.cu``; the pack, decode,
-trial error and realign step live in ``csrc/refine_common.cuh``) one warp
-handles one lane: texels, per-texel decoded endpoints and the grids sit in
-shared memory, the texel reductions are warp shuffles, the stencil sums use
-the sparse form of the decimation stencils (at most 4 taps per texel, and
-per-weight texel lists for the transposed sums), and the endpoint pack and
-decode run redundantly on every lane of the warp, so their branches are
-uniform. The R rounds stay in one launch. The work is a long chain of
-dependent scalar and warp-reduction steps per lane: the kernels are
-latency bound, and rely on many resident warps to hide that latency.
+trial error and realign step live in ``csrc/refine_common.cuh``) texels,
+per-texel decoded endpoints and the grids sit in shared memory, the texel
+reductions are warp shuffles, and the stencil sums use the sparse form of
+the decimation stencils (at most 4 taps per texel, and per-weight texel
+lists for the transposed sums). The R rounds stay in one launch. K3 runs
+one warp per lane, with the endpoint pack and decode run redundantly on
+every lane of the warp. K2 runs one CTA per block and one warp per
+candidate: the block's texels and the round-independent refit terms of its
+partitions are loaded and computed once per CTA; a warp takes all its
+partitions' refit sums in one pass over the texels, and its lanes solve,
+pack (the matched-format packs beside the plain ones) and decode the
+partitions side by side. The work is a long chain of dependent scalar and
+warp-reduction steps per lane: the kernels are latency bound, and rely on
+many resident warps to hide that latency.
 
 The plain versions are the XLA refine loops of ``trial.py:660-721``
 (1 plane) and ``:1227-1288`` (2 planes), built on ``recompute``,
@@ -343,6 +348,8 @@ def trial1_refine_cuda(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
     f32, i32 = torch.float32, torch.int32
     if NC != N * C:
         raise ValueError(f"{NC} lanes for {N} blocks x {C} candidates")
+    if not 1 <= C <= 8:
+        raise ValueError(f"candidate count {C} outside 1..8")
     if not 1 <= pc <= 4:
         raise ValueError(f"partition count {pc} outside 1..4")
     _build.check(wgrid0, "wgrid0", i32, (NC, W))
@@ -365,8 +372,7 @@ def trial1_refine_cuda(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
             p(k.wt_t), p(k.wt_i), p(k.wt_n), p(k.dm_color), p(k.pn),
             p(k.lohi), N, C, T, W, k.wt_n.shape[0], k.wt_t.shape[2], R, pc,
             pt.ncolors, int(u8_mask), profile, *(float(c) for c in cw),
-            p(out_i), p(out_e),
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+            p(out_i), p(out_e), ctypes.c_void_p(_build.stream(dev.index)))
         _raise_on(lib, rc, "refine")
         launches += 1
     return {"fmt": out_i[..., 0:4], "vals": out_i[..., 4:36].reshape(

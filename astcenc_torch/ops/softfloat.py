@@ -4,12 +4,30 @@ Port of ``astcenc_tpu/ops/softfloat.py`` (reference
 astcenc_vecmathlib.h:495-620): ASTC decodes to UNORM16 (LDR) or 16-bit LNS
 (HDR) integers, converts those to fp16 bit patterns, and only then widens
 to fp32, so the conversions are integer ops. ``float_to_lns`` is the
-encoder's HDR texel load.
+encoder's HDR texel load. ``div`` (the float32 quotient by a constant) and
+``sum3`` (a three-channel sum in a fixed order) give the same bits on
+every device.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def div(x, d: float):
+    """x / d, the float32 quotient on every device. On CUDA tensors PyTorch
+    multiplies by the reciprocal when the divisor is a Python or CPU
+    scalar, which can miss the quotient by one bit; a divisor on the
+    tensor's own device divides, as the CPU, the JAX package and the colour
+    pack kernel do. (Powers of two need no such care.)"""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
+def sum3(v):
+    """(v0 + v1) + v2 over the last axis, in that order on every device
+    (a reduction such as ``.sum(-1)`` may add in another order on the
+    card)."""
+    return (v[..., 0] + v[..., 1]) + v[..., 2]
 
 
 def _bit_length(p: torch.Tensor) -> torch.Tensor:

@@ -68,10 +68,20 @@ non-zero and never prints the last line:
     within 0.05 dB, >= 90% identical; K5-K7 none, K8 some); then the same
     encode profiled.
 
+14. JAX's blocks: the images of tests/test_torch_main.py (a 96x96 RGBA8
+    and a 48x48 one with an independent alpha, 6x6 -medium) and of
+    tests/test_torch_hdr_image.py (48x48 float16 at -ch), encoded on the
+    card and on the CPU, against the JAX package's blocks committed as
+    NumPy fixtures (tests/data/torch_ldr, tests/data/torch_hdr): at least
+    90% of the card's blocks identical and PSNR (mPSNR) within 0.05 dB,
+    per image, the CPU port's agreement printed beside.
+
 The fused main paths (phases 5 and 8) must launch K8 no time, as on the
 TPU. The lines before the last are the kernel table as JSON (K1-K4
 launches counted on the LDR main path, K5-K7 and K9 on the HDR path, K8
-on the LDR refine-off path) and the nvidia-smi line; the last line is
+on the LDR refine-off path; "redesigned" marks the kernels whose first
+port was redesigned for the card: K1, K2, K8, K9) and the nvidia-smi line;
+the last line is
 {"ok": true, "device": {...}}.
 
 Each kernel's ``bound_ms`` is the larger of its bytes (each input tensor
@@ -226,19 +236,29 @@ def _bound(nbytes: int, ops: float):
 
 # --- operation models ----------------------------------------------------
 # K1, per block and plane: the decimated ideal weights (16 per texel tap of
-# each decimation), the angular sums and extents (8 per weight and angular
-# step, 64 steps), and per mode the weight quantization (6 per weight) and
-# the weight-set error (11 per texel); per mode the format lookup and the
-# top-C insertion (8 + C).
+# each decimation); the angular sums and extents, 8 per weight and step,
+# over the steps the block's search takes (kSteps[min(maxprec, 7, maxwq)]
+# for each decimation with an angular level in use); per mode the weight
+# quantization (6 per weight) and the weight-set error (11 per texel); per
+# mode the format lookup and the top-C selection (8 + C).
+_K1_STEPS = (2, 3, 4, 5, 6, 8, 10, 12, 16, 20, 24, 32)
+
+
 def _ops_k1(pt, args, kw):
-    wei = args[1]
+    wei, maxwq = args[1], args[4]
     N, T = wei.shape
-    D, W = pt.k.wt_n.shape
-    M = pt.k.modes.shape[0]
+    k = pt.k
+    D, W = k.wt_n.shape
+    M = k.modes.shape[0]
     C = args[7]
     planes = 2 if kw.get("wei2") is not None else 1
-    return N * (planes * (16 * D * T + 512 * D * W + M * (6 * W + 11 * T))
-                + M * (8 + C))
+    mp = torch.minimum(k.maxprec.clamp(max=7)[None, :],
+                       maxwq[:, None].to(k.maxprec.dtype)).clamp(0, 11)
+    steps = torch.tensor(_K1_STEPS, device=mp.device)[mp.long()]
+    used = (k.levels_used != 0).to(steps.dtype) * k.wcount.to(steps.dtype)
+    angular = float((steps * used[None, :]).sum())
+    return (planes * (N * 16 * D * T + 8 * angular
+                      + N * M * (6 * W + 11 * T)) + N * M * (8 + C))
 
 
 # K2/K3, per lane and round: the refit (34 per texel and plane), the pack
@@ -524,6 +544,53 @@ def _block_kinds(decompress, ctx, blocks):
     return out
 
 
+_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                     "data")
+
+
+def _jax_fixtures(api, testdata, metrics, dev):
+    """Phase 14: per fixture image, the card's and the CPU port's share of
+    blocks identical to JAX's, and the decoded quality of the card's blocks
+    and of JAX's (decoded by the port)."""
+    ldr = api.config_init(api.Profile.LDR, 6, 6, 1, api.Quality.MEDIUM, 0)
+    hdr = api.config_init(api.Profile.HDR_RGB_LDR_A, 6, 6, 1,
+                          api.Quality.MEDIUM, 0)
+    rows = []
+    for name, cfg, path in (
+            ("rgba96", ldr, "torch_ldr/ref_medium_rgba96.npz"),
+            ("alpha48", ldr, "torch_ldr/ref_medium_alpha48.npz"),
+            ("hdr_ch48", hdr, "torch_hdr/ref_ch_48x48.npz")):
+        fx = np.load(os.path.join(_DATA, path))
+        h, w = (int(v) for v in fx["shape"])
+        is_hdr = cfg is hdr
+        if is_hdr:
+            img = testdata.synthetic_hdr_image(h, w, int(fx["seed"]),
+                                               independent_alpha=True)
+        else:
+            img = testdata.synthetic_image(
+                h, w, int(fx["seed"]),
+                independent_alpha=bool(fx["independent_alpha"]))
+        ctx = api.context_alloc(cfg, device=dev)
+        got = api.compress_image(ctx, img)
+        cpu = api.compress_image(api.context_alloc(cfg, device="cpu"), img)
+        want = fx["blocks"]
+        ident = float((got == want).all(1).mean())
+        ident_cpu = float((cpu == want).all(1).mean())
+        if is_hdr:
+            src = img.astype(np.float32)
+            qg, qw = (metrics.mpsnr(api.decompress_image(
+                ctx, b, w, h, out_type="f32")[0], src) for b in (got, want))
+        else:
+            qg, qw = (_psnr(api.decompress_image(ctx, b, w, h)[0], img)
+                      for b in (got, want))
+        assert ident >= 0.9 and abs(qg - qw) <= 0.05, (name, ident, qg, qw)
+        rows.append({"image": name, "card_identical": ident,
+                     "cpu_identical": ident_cpu,
+                     ("mpsnr_db" if is_hdr else "psnr_db"): qg,
+                     "jax_db": qw})
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -613,9 +680,9 @@ def main() -> int:
         torch.cuda.synchronize()
         detail, mae = _check_msearch(got, want)
         k = pt.k
-        nbytes = (_nbytes(*a[1:7], *kw.values(), k.tap_w, k.tap_i, k.wt_t,
-                          k.wt_i, k.wt_n, k.wcount, k.maxprec, k.modes, k.unq,
-                          k.sin_t, k.cos_t, k.levels_used)
+        nbytes = (_nbytes(*a[1:7], *kw.values(), k.taps, k.wlist, k.wt_n,
+                          k.wcount, k.maxprec, k.modes, k.unq, k.sin_t,
+                          k.cos_t, k.levels_used)
                   + _nbytes(*got.values()))
         detail = {"blocks": a[1].shape[0], "candidates": a[7],
                   "modes": int(k.modes.shape[0]), **detail}
@@ -1133,6 +1200,10 @@ def main() -> int:
     print(f"{at()} HDR refine-off profile ({2 * q}x{2 * q} centre): "
           f"{json.dumps(prof_hr)} | {smi}", flush=True)
 
+    # --- 14. the card's blocks against JAX's -------------------------------
+    for row in _jax_fixtures(api, testdata, metrics, dev):
+        print(f"{at()} JAX blocks: {json.dumps(row)} | {smi}", flush=True)
+
     meta = {"K1": ("msearch", "astcenc_torch/csrc/msearch.cu",
                    "astcenc_tpu/ops/msearch_pallas.py:281"),
             "K2": ("refine", "astcenc_torch/csrc/refine.cu",
@@ -1151,6 +1222,7 @@ def main() -> int:
                    "astcenc_tpu/ops/gather_pallas.py:120"),
             "K9": ("color_pack", "astcenc_torch/csrc/color_pack.cu",
                    "astcenc_tpu/ops/gather_pallas.py:170")}
+    redesigned = ("K1", "K2", "K8", "K9")
     kernels = []
     for kern, (name, src, rep) in meta.items():
         s = stats[kern]
@@ -1164,7 +1236,8 @@ def main() -> int:
                         "replaces": rep, "launches": n[name],
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": bms,
-                        "bound_by": by, "library_ms": s["library_ms"]})
+                        "bound_by": by, "library_ms": s["library_ms"],
+                        "redesigned": kern in redesigned})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

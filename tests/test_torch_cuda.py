@@ -1,11 +1,15 @@
 """astcenc_torch kernels K1-K8 and the colour pack kernel (K9) against their
 plain PyTorch versions on a CUDA card, and encodes through the kernels
-against the plain path and with the refinement kernels switched off.
-Needs a card (the kernels have no CPU build) and no jax, so it also runs
-where jax is missing:
+against the plain path and with the refinement kernels switched off; the
+card's blocks against the JAX package's, from committed NumPy fixtures
+(tests/data/torch_ldr, tests/data/torch_hdr); and the port's divisions by
+constants on the card against the CPU's. Needs a card (the kernels have no
+CPU build) and no jax, so it also runs where jax is missing:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -16,8 +20,11 @@ from astcenc_torch.codec import compress as tc
 from astcenc_torch.codec import partition_search
 from astcenc_torch.codec import trial
 from astcenc_torch.ops import msearch, psearch
+from astcenc_torch.utils import metrics
 
 pytestmark = pytest.mark.cuda
+
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 
 
 @pytest.fixture
@@ -509,3 +516,280 @@ def test_refine_off_hdr_crop_matches_fused(cuda_device, monkeypatch):
     assert n["K5"] == 0 and n["K6"] == 0 and n["K7"] == 0, n
     assert n["K8"] > 0 and n["K9"] > 0, n
     assert (got == want).all()
+
+
+def _footprint_inputs(dev, bx, quality, kind, pc, n_blocks, seed):
+    """The arguments the plain trial front end hands the mode search (K1)
+    and the 1-plane refinement (K2) on their first call, for a seeded
+    synthetic image at a bx x bx footprint and a preset; for pc >= 2 on
+    seeded partitionings of the partition table."""
+    from astcenc_torch.ops import refine
+    ctx = api.context_alloc(api.config_init(
+        api.Profile.LDR, bx, bx, 1, getattr(api.Quality, quality), 0),
+        device=dev)
+    img = testdata.synthetic_image(bx * 8, bx * (-(-n_blocks // 8)), seed,
+                                   independent_alpha=True)
+    tex = torch.from_numpy(tc.image_to_blocks(ctx, img)[:n_blocks]).to(dev)
+    st = tc.make_block_state(tex, 0)
+    N = tex.shape[0]
+    ql = torch.full((N,), 11, dtype=torch.int32, device=dev)
+    seen = {}
+    saved = {(m, n): getattr(m, n) for m, n in ((msearch, "mode_search"),
+                                                (refine, "trial1_refine"))}
+
+    def grab(key, fn):
+        def wrap(*a, **kw):
+            seen.setdefault(key, (a, {k: v for k, v in kw.items()
+                                      if k != "use_kernel"}))
+            return fn(*a, **kw)
+        return wrap
+
+    msearch.mode_search = grab("K1", saved[(msearch, "mode_search")])
+    refine.trial1_refine = grab("K2", saved[(refine, "trial1_refine")])
+    try:
+        if kind == "two":
+            ext = torch.ones((N, 4), dtype=torch.bool, device=dev)
+            trial.trial2_records(st, ctx.pass_tables("two"), ctx.config, 0,
+                                 False, ql, ext, use_kernels=False)
+        else:
+            ext = torch.ones(N, dtype=torch.bool, device=dev)
+            kw = {}
+            if pc > 1:
+                tabs = ctx.partition_tables(pc)
+                rows = torch.from_numpy(np.random.RandomState(seed).randint(
+                    0, tabs.count_selected, N)).to(dev)
+                kw = {"pot": tabs.pot[rows], "counts": tabs.counts[rows]}
+            trial.trial1_records(st, ctx.pass_tables("full", pc), ctx.config,
+                                 0, False, ql, ext, use_kernels=False, **kw)
+    finally:
+        for (m, n), fn in saved.items():
+            setattr(m, n, fn)
+    return seen
+
+
+@pytest.mark.parametrize("bx,quality,kind,pc", [
+    (4, "FASTEST", "full", 1), (4, "FASTEST", "two", 1),
+    (8, "THOROUGH", "full", 1), (8, "THOROUGH", "two", 1),
+    (8, "THOROUGH", "full", 2), (8, "THOROUGH", "full", 3),
+    (8, "THOROUGH", "full", 4),
+    (12, "EXHAUSTIVE", "full", 1), (12, "EXHAUSTIVE", "two", 1)])
+def test_msearch_kernel_footprints(cuda_device, bx, quality, kind, pc):
+    """K1 against its plain version beyond 6x6 -medium: every footprint
+    and preset the kernel takes, up to W = 64, T = 144, C = 8 and 529
+    modes, on the inputs the plain front end gives it."""
+    n = {4: 512, 8: 128, 12: 48}[bx]
+    a, kw = _footprint_inputs(cuda_device, bx, quality, kind, pc, n,
+                              bx + pc)["K1"]
+    _check_msearch(msearch.mode_search_cuda(*a, **kw),
+                   msearch.mode_search_plain(*a, **kw))
+
+
+def _refine_records(rf, wgrid0, N, C):
+    """K2 outputs -> per-block records [r0-pre, r0-post, r1-post, ...]."""
+    K = rf["err_post"].shape[0] + 1
+
+    def rec(pre0, post):
+        rr = torch.cat([pre0[None], post], 0)
+        shp = tuple(rr.shape[2:])
+        rr = rr.reshape((K, N, C) + shp)
+        return rr.permute((1, 2, 0) + tuple(range(3, 3 + len(shp)))).reshape(
+            (N, C * K) + shp).cpu().numpy()
+
+    return {"err": rec(rf["err_pre"], rf["err_post"]),
+            "fmt": rec(rf["fmt"][0], rf["fmt"]),
+            "vals": rec(rf["vals"][0], rf["vals"]),
+            "w": rec(wgrid0, rf["wpost"])}
+
+
+@pytest.mark.parametrize("bx,quality,pc", [
+    (8, "THOROUGH", 1), (8, "THOROUGH", 2), (8, "THOROUGH", 3),
+    (12, "EXHAUSTIVE", 1), (12, "EXHAUSTIVE", 2), (12, "EXHAUSTIVE", 3)])
+def test_refine_kernel_footprints(cuda_device, bx, quality, pc):
+    """K2 against its plain version at 8x8 -thorough and 12x12
+    -exhaustive (W = 64, T up to 144, C up to 8, R = 4), pc 1-3, on the
+    inputs the plain front end gives it."""
+    from astcenc_torch.ops import refine
+    n = {8: 128, 12: 48}[bx]
+    a, _ = _footprint_inputs(cuda_device, bx, quality, "full", pc, n,
+                             bx + 10 * pc)["K2"]
+    N, C = a[8].shape[0], a[12]
+    rk = _refine_records(refine.trial1_refine_cuda(*a), a[1], N, C)
+    rx = _refine_records(refine.trial1_refine_plain(*a), a[1], N, C)
+    live = rx["err"] < 1e29
+    np.testing.assert_array_equal(rk["err"] < 1e29, live)
+    _check_records(rk, rx, ("fmt", "vals", "w"))
+
+
+def _bits(t):
+    t = t.cpu()
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _division_case(case, dev):
+    """Outputs of one site that divides by a constant, on ``dev``, from
+    seeded inputs."""
+    from astcenc_torch.codec import compress as comp
+    from astcenc_torch.ops import formats, recompute
+    rng = np.random.default_rng(61)
+    N, P, T = 4096, 2, 36
+    cw = (1.0, 1.0, 1.0, 1.0)
+    if case == "error_tables":
+        ep0, ep1, _, _ = testdata.endpoint_pairs(rng, N * P)
+        counts = rng.integers(1, T, (N, P)).astype(np.int32)
+        eci = {k: rng.uniform(0, 1e6, (N, P)).astype(np.float32)
+               for k in ("rgb_scale_error", "rgb_luma_error",
+                         "luminance_error", "alpha_drop_error")}
+        return formats.color_error_tables_hdr(
+            {k: torch.from_numpy(v).to(dev) for k, v in eci.items()},
+            *(torch.from_numpy(x).to(dev) for x in (
+                ep0.reshape(N, P, 4), ep1.reshape(N, P, 4), counts)), cw,
+            True)
+    if case == "rgbo_fallback":
+        tex = rng.uniform(0, 65535, (N, T, 4)).astype(np.float32)
+        pot = rng.integers(0, P, (N, T))
+        pot[:N // 4] = 0                  # partition 1 empty
+        pmask = np.eye(P, dtype=np.float32)[pot]
+        u = (rng.integers(0, 65, (N, T)) / 64.0).astype(np.float32)
+        u[N // 4:N // 2] = 0.5            # one weight: a singular solve
+        e0 = rng.uniform(0, 30000, (N, P, 4)).astype(np.float32)
+        e1 = e0 + rng.uniform(0, 30000, (N, P, 4)).astype(np.float32)
+        t = [torch.from_numpy(x).to(dev) for x in (
+            tex, pmask, pmask.sum(1).astype(np.int32), u)]
+        e0, e1 = torch.from_numpy(e0).to(dev), torch.from_numpy(e1).to(dev)
+        rc = recompute.recompute_ideal_colors_1plane(*t, cw, e0, e1,
+                                                     is_hdr=True)
+        # In the refit the fallback rows have equal endpoints (an empty
+        # partition or one weight), so it also runs alone, on sums whose
+        # solve is NaN (no weight) in the first quarter of the rows and
+        # endpoints that differ.
+        ws = rng.uniform(1, 36, (N, P, 4)).astype(np.float32)
+        ws[:N // 4] = 0.0
+        sums = [torch.from_numpy(x).to(dev) for x in (
+            ws, rng.uniform(0, 36, (N, P, 4)).astype(np.float32),
+            rng.uniform(0, 1e6, (N, P, 4)).astype(np.float32),
+            rng.uniform(0, 1e6, (N, P, 4)).astype(np.float32),
+            rng.uniform(0, 36, (N, P)).astype(np.float32))]
+        return ([rc[k] for k in ("ep0", "ep1", "rgbs", "rgbo")]
+                + [recompute._rgbo(*sums, e0, e1)])
+    # Constant blocks at profile 2: LNS colour, UNORM16 alpha.
+    tex0 = rng.integers(0, 65536, (1024, 4)).astype(np.float32)
+    tex = torch.from_numpy(np.repeat(tex0[:, None], T, 1)).to(dev)
+    ctx = api.context_alloc(api.config_init(
+        api.Profile.HDR_RGB_LDR_A, 6, 6, 1, api.Quality.MEDIUM, 0),
+        device=dev)
+    _, aux = comp.stage1_1plane(ctx, tex)
+    assert bool(aux["is_const"].all())
+    return [aux["const_color"]]
+
+
+@pytest.mark.parametrize("case", ["error_tables", "rgbo_fallback",
+                                  "constant_color"])
+def test_constant_divisions_match_cpu(cuda_device, case):
+    """The sites that divide by a constant (softfloat.div) give the CPU's
+    float32 quotients on the card, bit for bit: the HDR colour-error tables
+    (the luminance difference / 3; their RGB range error sums three
+    channels in a fixed order), the HDR refit's RGBO fallback (/ 3), taken
+    on a quarter of the rows with an empty partition, a quarter with one
+    weight for every texel, and alone on rows whose solve is NaN, and the
+    profile-2 constant colour (alpha / 65535)."""
+    got, want = (_division_case(case, d) for d in (cuda_device, "cpu"))
+    for g, w in zip(got, want):
+        diff = int((_bits(g) != _bits(w)).sum())
+        print(f"{case}: {diff} of {w.numel()} values differ from the CPU's")
+        assert diff == 0
+
+
+def test_encoding_choice_errors_against_cpu(cuda_device):
+    """ROADMAP §C3, open: formats.encoding_choice_errors sums over texels
+    with einsum (a batched product, cuBLAS on the card) and over channels
+    with .sum(-1), which the card adds in another order than the CPU. On
+    seeded 2-partition blocks this prints how many of its values differ
+    from the CPU's and by how much, holds each within 1e-4 of its
+    partition's error scale (the weighted sum of its squared texels), and
+    the flags bit for bit."""
+    from astcenc_torch.ops import formats
+    rng = np.random.default_rng(67)
+    N, P, T = 4096, 2, 36
+    cw = (1.0, 1.0, 1.0, 1.0)
+    tex = rng.uniform(0, 65535, (N, T, 4)).astype(np.float32)
+    tex[:N // 2] = np.sort(tex[:N // 2], 1)           # smoother blocks
+    pmask = np.eye(P, dtype=np.float32)[rng.integers(0, P, (N, T))]
+    ep0, ep1, _, _ = testdata.endpoint_pairs(rng, N * P)
+    lum = rng.random(N) < 0.25
+    args = (tex, pmask, ep0.reshape(N, P, 4), ep1.reshape(N, P, 4))
+
+    def run(dev):
+        t = [torch.from_numpy(x).to(dev) for x in args]
+        out = formats.encoding_choice_errors(
+            *t, cw, torch.from_numpy(lum).to(dev), 65535.0)
+        return {k: v.cpu() for k, v in out.items()}
+
+    got, want = run(cuda_device), run("cpu")
+    scale = np.einsum("ntp,nt->np", pmask.astype(np.float64),
+                      (tex.astype(np.float64) ** 2).sum(-1))
+    for k, w in want.items():
+        g = got[k]
+        if w.dtype == torch.bool:
+            assert (g == w).all(), k
+            continue
+        diff = int((_bits(g) != _bits(w)).sum())
+        rel = (np.abs(g.double().numpy() - w.double().numpy())
+               / np.maximum(scale, 1.0))
+        print(f"encoding_choice_errors {k}: {diff} of {w.numel()} values "
+              f"differ from the CPU's, at most {rel.max():.3e} of the "
+              f"partition's scale")
+        assert bool(torch.isfinite(g).all()) and rel.max() <= 1e-4, k
+
+
+def _psnr(a, b):
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return 10.0 * np.log10(255.0 ** 2 / mse)
+
+
+@pytest.mark.parametrize("name", ["rgba96", "alpha48"])
+def test_ldr_blocks_match_jax_fixture(cuda_device, name):
+    """tests/test_torch_main.py's images at 6x6 -medium encoded on the card
+    against JAX's blocks (tests/data/torch_ldr): at least 90% identical,
+    PSNR within 0.05 dB; the CPU port's agreement printed beside."""
+    fx = np.load(os.path.join(DATA, "torch_ldr", f"ref_medium_{name}.npz"))
+    h, w = (int(v) for v in fx["shape"])
+    img = testdata.synthetic_image(h, w, int(fx["seed"]),
+                                   independent_alpha=bool(
+                                       fx["independent_alpha"]))
+    cfg = api.config_init(api.Profile.LDR, 6, 6, 1, api.Quality.MEDIUM, 0)
+    ctx = api.context_alloc(cfg, device=cuda_device)
+    got = api.compress_image(ctx, img)
+    cpu = api.compress_image(api.context_alloc(cfg, device="cpu"), img)
+    want = fx["blocks"]
+    ident = float((got == want).all(1).mean())
+    ident_cpu = float((cpu == want).all(1).mean())
+    pg, pw = (_psnr(api.decompress_image(ctx, b, w, h)[0], img)
+              for b in (got, want))
+    print(f"{name}: card {ident:.4f} of blocks identical to JAX (CPU port "
+          f"{ident_cpu:.4f}); PSNR {pg:.6f} dB, JAX {pw:.6f} dB")
+    assert ident >= 0.9 and abs(pg - pw) <= 0.05, (ident, pg, pw)
+
+
+def test_hdr_blocks_match_jax_fixture(cuda_device):
+    """tests/test_torch_hdr_image.py's 48x48 image at 6x6 -medium -ch
+    encoded on the card against JAX's blocks (tests/data/torch_hdr): at
+    least 90% identical, mPSNR within 0.05 dB; the CPU port's agreement
+    printed beside."""
+    fx = np.load(os.path.join(DATA, "torch_hdr", "ref_ch_48x48.npz"))
+    h, w = (int(v) for v in fx["shape"])
+    img = testdata.synthetic_hdr_image(h, w, int(fx["seed"]),
+                                       independent_alpha=True)
+    cfg = api.config_init(api.Profile.HDR_RGB_LDR_A, 6, 6, 1,
+                          api.Quality.MEDIUM, 0)
+    ctx = api.context_alloc(cfg, device=cuda_device)
+    got = api.compress_image(ctx, img)
+    cpu = api.compress_image(api.context_alloc(cfg, device="cpu"), img)
+    want = fx["blocks"]
+    ident = float((got == want).all(1).mean())
+    ident_cpu = float((cpu == want).all(1).mean())
+    src = img.astype(np.float32)
+    mg, mw = (metrics.mpsnr(api.decompress_image(
+        ctx, b, w, h, out_type="f32")[0], src) for b in (got, want))
+    print(f"48x48 -ch: card {ident:.4f} of blocks identical to JAX (CPU "
+          f"port {ident_cpu:.4f}); mPSNR {mg:.5f} dB, JAX {mw:.5f} dB")
+    assert ident >= 0.9 and abs(mg - mw) <= 0.05, (ident, mg, mw)

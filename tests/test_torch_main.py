@@ -10,9 +10,20 @@ through JAX in one call, side by side on one canvas (the block grid keeps
 them apart: blocks never straddle the seam), and ``jax_reference`` caches
 that encode and its symbolic blocks for the whole process
 (tests/test_torch_physical.py packs them too).
+
+JAX's blocks of both images are also committed as NumPy fixtures,
+``tests/data/torch_ldr/ref_medium_<name>.npz`` (the seed, the shape, the
+independent-alpha flag and the blocks), for the card's tests, which have
+no jax (tests/test_torch_cuda.py, chip_smoke.py). A tier-1 test holds them
+to ``jax_reference()``'s blocks; the ``slow`` test rewrites them into a
+temporary directory and compares. To rebuild them:
+
+    JAX_PLATFORMS=cpu python -c "import sys; sys.path.insert(0, 'tests');
+        import test_torch_main as m; m.write_fixtures()"
 """
 
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -31,6 +42,23 @@ torch.set_num_threads(2)
 
 # name: (height, width, seed, independent alpha)
 IMAGES = {"rgba96": (96, 96, 0, False), "alpha48": (48, 48, 3, True)}
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "torch_ldr")
+
+
+def fixture_path(name, root=FIXTURES):
+    return os.path.join(root, f"ref_medium_{name}.npz")
+
+
+def write_fixtures(root=FIXTURES):
+    """JAX's blocks of each image (``jax_reference()``) as a fixture."""
+    ref = jax_reference()
+    os.makedirs(root, exist_ok=True)
+    for name, (h, w, seed, alpha) in IMAGES.items():
+        np.savez(fixture_path(name, root), seed=np.int32(seed),
+                 shape=np.array([h, w], np.int32),
+                 independent_alpha=np.bool_(alpha),
+                 blocks=ref["blocks"][name])
 
 
 def config(api):
@@ -145,3 +173,24 @@ def test_block_types_match_symbolic(ref):
     np.testing.assert_array_equal(pc[real], s["partition_count"][real])
     np.testing.assert_array_equal(planes[real] == 2,
                                   s["plane2_component"][real] >= 0)
+
+
+@pytest.mark.parametrize("name", list(IMAGES))
+def test_fixture_matches_jax(ref, name):
+    """The committed fixture holds JAX's blocks of this image."""
+    h, w, seed, alpha = IMAGES[name]
+    fx = np.load(fixture_path(name))
+    assert int(fx["seed"]) == seed and tuple(fx["shape"]) == (h, w)
+    assert bool(fx["independent_alpha"]) == alpha
+    np.testing.assert_array_equal(fx["blocks"], ref["blocks"][name])
+
+
+@pytest.mark.slow
+def test_rebuild_fixture_unchanged(tmp_path):
+    write_fixtures(str(tmp_path))
+    for name in IMAGES:
+        got, want = np.load(fixture_path(name, str(tmp_path))), np.load(
+            fixture_path(name))
+        assert sorted(got.files) == sorted(want.files)
+        for k in want.files:
+            np.testing.assert_array_equal(got[k], want[k])
