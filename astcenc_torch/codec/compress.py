@@ -26,6 +26,7 @@ import torch
 from .. import config as host_config
 from ..ops import gather
 from ..ops import softfloat as sf
+from ..ops import texel_sum as ts
 from . import partition_search, physical, trial
 
 TUNE_MIN_SEARCH_MODE0 = 0.85
@@ -39,7 +40,8 @@ Profile = host_config.Profile
 
 
 def make_block_state(texels, profile: int = 1):
-    """Per-block state dict from (N, T, 4) float32 texels."""
+    """Per-block state dict from (N, T, 4) float32 texels. The mean adds
+    in the CPU's order of ``texels.mean(1)`` on every device."""
     data_min = texels.amin(1)
     data_max = texels.amax(1)
     gray = ((texels[..., 0] == texels[..., 1])
@@ -49,7 +51,8 @@ def make_block_state(texels, profile: int = 1):
         data_max[:, 3] == default_alpha)
     return {
         "texels": texels, "data_min": data_min, "data_max": data_max,
-        "data_mean": texels.mean(1), "grayscale": gray,
+        "data_mean": sf.div(ts.block_sum(texels), float(texels.shape[1])),
+        "grayscale": gray,
         "uses_alpha": data_min[:, 3] != data_max[:, 3],
         "is_luminance": gray & alpha1, "is_luminancealpha": gray & ~alpha1,
         "default_alpha": default_alpha,
@@ -58,16 +61,18 @@ def make_block_state(texels, profile: int = 1):
 
 def _lowest_correlation(texels, channel_weight):
     """prepare_block_statistics (reference :1047-1159): the smallest
-    |correlation| between two channels of each block."""
+    |correlation| between two channels of each block. Its sums add in one
+    order on every device: the channel sums as the CPU's ``x.sum(1)``, the
+    products of channel pairs texel after texel."""
     cw = torch.tensor(channel_weight, dtype=torch.float32,
                       device=texels.device)
-    weight = cw.sum() / 4.0
+    weight = sf.sum4(cw) / 4.0
     T = texels.shape[1]
     rpt = 1.0 / torch.clamp(weight * T, min=1e-7)
-    s = texels.sum(1) * weight
-    var = torch.einsum("ntc,ntd->ncd", texels, texels) * weight
+    s = ts.block_sum(texels) * weight
+    var = ts.texel_sum(texels, texels) * weight
     var = var - s[:, :, None] * s[:, None, :] * rpt
-    d = torch.sqrt(torch.clamp(torch.diagonal(var, dim1=1, dim2=2), min=0.0))
+    d = sf.sqrt(torch.clamp(torch.diagonal(var, dim1=1, dim2=2), min=0.0))
     denom = d[:, :, None] * d[:, None, :]
     corr = var / torch.where(denom > 0, denom, 1.0)
     corr = torch.where(torch.isnan(corr) | (denom == 0), 1.0, corr)

@@ -16,6 +16,8 @@ import numpy as np
 import torch
 
 from ..ops import psearch as psearch_ops
+from ..ops import softfloat as sf
+from ..ops import texel_sum as ts
 
 _CLUSTER_CUTOFFS = np.array([
     0.626220, 0.932770, 0.275454,
@@ -69,7 +71,9 @@ def _popcount(x):
 def kmeans(texels, cw, texel_count: int, partition_count: int):
     """Three rounds of k-means (reference:
     compute_kmeans_partition_ordering; port of ``_kmeans``,
-    partition_search.py:27-85). Returns (N, T) int64 cluster per texel."""
+    partition_search.py:27-85). Returns (N, T) int64 cluster per texel.
+    Its sums add in the same order on every device (``ops/texel_sum.py``,
+    ``softfloat.sum4``), so the card assigns the texels as the CPU does."""
     N, T, _ = texels.shape
     dev = texels.device
     cwt = torch.tensor(cw, dtype=torch.float32, device=dev)
@@ -77,15 +81,15 @@ def kmeans(texels, cw, texel_count: int, partition_count: int):
 
     def dist_to(center):
         d = texels - center[:, None, :]
-        return (d * d * cwt).sum(-1)
+        return sf.sum4(d * d * cwt)
 
     centers = [texels[:, 145897 % texel_count]]
     distances = dist_to(centers[0])
     cutoff_idx = 3 * (partition_count - 2)
     for _ in range(1, partition_count):
-        dcut = distances.sum(-1) * float(_CLUSTER_CUTOFFS[cutoff_idx])
+        dcut = ts.row_sum(distances) * float(_CLUSTER_CUTOFFS[cutoff_idx])
         cutoff_idx += 1
-        reached = torch.cumsum(distances, -1) >= dcut[:, None]
+        reached = ts.prefix_sums(distances) >= dcut[:, None]
         sample = torch.where(reached.any(-1),
                              reached.to(torch.int32).argmax(-1),
                              texel_count - 1)
@@ -96,7 +100,7 @@ def kmeans(texels, cw, texel_count: int, partition_count: int):
 
     def assign(centers):
         d = texels[:, :, None, :] - centers[:, None, :, :]
-        part = (d * d * cwt).sum(-1).argmin(-1)              # first minimum
+        part = sf.sum4(d * d * cwt).argmin(-1)               # first minimum
         # Empty clusters take texel k (reference kmeans_assign :184-198).
         for _ in range(partition_count):
             for k in range(partition_count):
@@ -108,7 +112,7 @@ def kmeans(texels, cw, texel_count: int, partition_count: int):
     ks = torch.arange(partition_count, device=dev)
     for _ in range(2):
         oh = (part[..., None] == ks).to(torch.float32)
-        sums = torch.einsum("ntk,ntc->nkc", oh, texels)
+        sums = ts.masked_sum(oh, texels)
         cnts = torch.clamp(oh.sum(1), min=1.0)
         part = assign(sums / cnts[..., None])
     return part

@@ -532,8 +532,10 @@ __device__ __forceinline__ float infill_i(const Stencil& s, const int* wg,
   return (float)((8 + v) >> 4);
 }
 
-// Trial error of a block against its decode: per-texel decoded endpoints
-// e0t/e1t (T, 4); channel p2c (or none, -1) takes plane 2's weights.
+// Trial error of a block against its decode: decoded endpoints e0t/e1t of
+// texel t at [t * ES + c] (ES = 4: one per texel, (T, 4); ES = 0: the same
+// four for every texel); channel p2c (or none, -1) takes plane 2's weights.
+template <int ES = 4>
 __device__ float trial_error(int lane, int T, const float* tex,
                              const float* e0t, const float* e1t,
                              const Stencil& s, const int* wg1, const int* wg2,
@@ -546,7 +548,7 @@ __device__ float trial_error(int lane, int T, const float* tex,
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const float w = c == p2c ? w2 : w1;
-      float color = floorf((e0t[t * 4 + c] * (64.f - w) + e1t[t * 4 + c] * w
+      float color = floorf((e0t[t * ES + c] * (64.f - w) + e1t[t * ES + c] * w
                             + 32.f) / 64.f);
       if (u8_mask) color = floorf(color / 256.f) * 257.f;
       const float dd = fminf(fabsf(tex[t * 4 + c] - color), 1e15f);
@@ -559,8 +561,10 @@ __device__ float trial_error(int lane, int T, const float* tex,
 
 constexpr int kMaxClasses = 8;   // parity classes of a weight grid
 
-// Scratch of one warp for realign(): per texel (T,): inf, At, Bt, Ct; per
-// weight (W,): dlt, sc, dn, up, cls; cls_off (kMaxClasses + 1,).
+// Scratch of one realign() at a time: per texel (T,): inf, At, Bt, Ct; per
+// weight (W,): dlt, sc, dn, up, cls; cls_off (kMaxClasses + 1,). The class
+// lists (cls, cls_off) depend on the stencil alone, so two realigns of one
+// stencil may share them.
 struct RealignScratch {
   float* inf;
   float* At;
@@ -622,27 +626,34 @@ __device__ void realign_classes(int lane, int W, int ncolors,
 // (the next class reads only those); the last class's infill update, which
 // nothing reads, is skipped. Needs realign_classes() of the same stencil.
 // Returns whether any weight moved; wg is updated in place.
+//
+// G lanes run it (lane 0..G-1 of the group whose lanes gmask names): a
+// warp, or a half-warp so that a warp realigns two planes at once. Every
+// texel's and every weight's terms are taken by one lane, so the results
+// do not depend on G. Endpoints as for trial_error (ES).
+template <int G = 32, int ES = 4>
 __device__ bool realign(int lane, int T, int W, int ncolors, const float* tex,
                         const float* e0t, const float* e1t, unsigned chmask,
                         const float* cw, const Stencil& s, const int* pnq,
-                        int* wg, const RealignScratch& x) {
+                        int* wg, const RealignScratch& x,
+                        unsigned gmask = kFull) {
   auto off_of = [&](int t, int c) {
     return ((chmask >> c) & 1u)
-               ? (e1t[t * 4 + c] - e0t[t * 4 + c]) * (1.f / 64.f) : 0.f;
+               ? (e1t[t * ES + c] - e0t[t * ES + c]) * (1.f / 64.f) : 0.f;
   };
   auto terms = [&](int t, float inf) {
     float A = 0.f, B = 0.f;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const float off = off_of(t, c);
-      const float diff = (e0t[t * 4 + c] + off * inf) - tex[t * 4 + c];
+      const float diff = (e0t[t * ES + c] + off * inf) - tex[t * 4 + c];
       A += (diff * diff) * cw[c];
       B += (diff * off) * cw[c];
     }
     x.At[t] = A;
     x.Bt[t] = B;
   };
-  for (int t = lane; t < T; t += 32) {
+  for (int t = lane; t < T; t += G) {
     const float inf = infill_f(s, wg, t);
     x.inf[t] = inf;
     float o[4];
@@ -652,8 +663,8 @@ __device__ bool realign(int lane, int T, int W, int ncolors, const float* tex,
                + o[2] * o[2] * cw[2]) + o[3] * o[3] * cw[3];
     terms(t, inf);
   }
-  __syncwarp();
-  for (int w = lane; w < W; w += 32) {
+  __syncwarp(gmask);
+  for (int w = lane; w < W; w += G) {
     const int v = clampi(wg[w], 0, 64);
     x.dn[w] = pnq[v * 2];
     x.up[w] = pnq[v * 2 + 1];
@@ -665,11 +676,11 @@ __device__ bool realign(int lane, int T, int W, int ncolors, const float* tex,
     x.sc[w] = c;
     x.dlt[w] = 0.f;
   }
-  __syncwarp();
+  __syncwarp(gmask);
   bool adjusted = false;
   for (int k = 0; k < ncolors; ++k) {
     bool moved = false;
-    for (int j = x.cls_off[k] + lane; j < x.cls_off[k + 1]; j += 32) {
+    for (int j = x.cls_off[k] + lane; j < x.cls_off[k + 1]; j += G) {
       const int w = x.cls[j];
       float SA = 0.f, SB = 0.f;
       for (int kk = 0; kk < s.wtn[w]; ++kk) {
@@ -691,12 +702,12 @@ __device__ bool realign(int lane, int T, int W, int ncolors, const float* tex,
     }
     // The previous class's deltas are spent.
     if (k > 0)
-      for (int j = x.cls_off[k - 1] + lane; j < x.cls_off[k]; j += 32)
+      for (int j = x.cls_off[k - 1] + lane; j < x.cls_off[k]; j += G)
         x.dlt[x.cls[j]] = 0.f;
-    adjusted = __any_sync(kFull, moved) || adjusted;
-    __syncwarp();
+    adjusted = __any_sync(gmask, moved) || adjusted;
+    __syncwarp(gmask);
     if (k == ncolors - 1) break;
-    for (int t = lane; t < T; t += 32) {
+    for (int t = lane; t < T; t += G) {
       float d = 0.f;
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
@@ -705,7 +716,7 @@ __device__ bool realign(int lane, int T, int W, int ncolors, const float* tex,
       x.inf[t] = inf;
       terms(t, inf);
     }
-    __syncwarp();
+    __syncwarp(gmask);
   }
   return adjusted;
 }

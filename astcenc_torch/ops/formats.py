@@ -17,6 +17,7 @@ import torch
 from . import color_unquant as cuq
 from . import ideal as ideal_ops
 from . import softfloat as sf
+from .texel_sum import masked_sum
 
 QUANT_6 = 4
 ERROR_CALC_DEFAULT = 1e30
@@ -29,13 +30,14 @@ _BASELINE_QUANT_ERROR = np.array([
 
 def _cw_parts(channel_weight, device):
     cw = torch.tensor(channel_weight, dtype=torch.float32, device=device)
-    return cw[:3], cw[3], cw[:3].sum()
+    return cw[:3], cw[3], sf.sum3(cw)
 
 
 def encoding_choice_errors(texels, pmask, ep0, ep1, channel_weight,
                            is_luminance, default_alpha: float):
     """Errors of the cheaper endpoint encodings per partition (reference:
-    compute_encoding_choice_errors, :222-300). Returns dict of (N, P)."""
+    compute_encoding_choice_errors, :222-300). Returns dict of (N, P).
+    Texel and channel sums in the CPU's order on every device."""
     dev = texels.device
     cw3, cw_a, _ = _cw_parts(channel_weight, dev)
     rgb_mask = (1, 1, 1, 0)
@@ -46,14 +48,13 @@ def encoding_choice_errors(texels, pmask, ep0, ep1, channel_weight,
     unit3 = m3 / float(np.sqrt(3.0))
 
     def line_err(b_t, amod_t):
-        param = (texels[..., :3] * b_t[..., :3]).sum(-1)
+        param = sf.sum3(texels * b_t)
         dist = amod_t[..., :3] + param[..., None] * b_t[..., :3] \
             - texels[..., :3]
-        err = (dist * dist * cw3).sum(-1)
-        return torch.einsum("ntp,nt->np", pmask, err)
+        return masked_sum(pmask, sf.sum3(dist * dist * cw3))
 
     def proj(a, b):
-        d = (a[..., :3] * b[..., :3]).sum(-1, keepdim=True)
+        d = sf.sum3(a * b)[..., None]
         return a - b * d
 
     def scatter(x):
@@ -68,7 +69,7 @@ def encoding_choice_errors(texels, pmask, ep0, ep1, channel_weight,
     l_err = line_err(unit3.expand_as(texels), zeros)
 
     a_diff = texels[..., 3] - default_alpha
-    a_drop = torch.einsum("ntp,nt->np", pmask, a_diff * a_diff) * cw_a
+    a_drop = masked_sum(pmask, a_diff * a_diff) * cw_a
     epd = (ep1 - ep0).abs()
     can_offset = (epd[..., :3] < 0.12 * 65535.0).all(-1)
     return {

@@ -5,12 +5,19 @@ astcenc_ideal_endpoints_and_weights.cpp, astcenc_averages_and_directions.cpp).
 
 Conventions: texels (N, T, 4) float32 in [0, 65535]; pmask (N, T, 4)
 float32 one-hot partition membership.
+
+Texel sums go through ``texel_sum.masked_sum`` and channel sums through
+``softfloat.sum3``/``sum4``, so the card adds in the CPU's order and both
+devices take the same decisions (ROADMAP §C3).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import softfloat as sf
+from .texel_sum import masked_sum
 
 _EPS_LINE = 1e-7
 
@@ -26,7 +33,7 @@ def _cm(comp_mask, device):
 
 
 def partition_means(texels, pmask):
-    sums = torch.einsum("ntp,ntc->npc", pmask, texels)
+    sums = masked_sum(pmask, texels)
     counts = pmask.sum(1)
     return sums / torch.clamp(counts[..., None], min=1.0), counts
 
@@ -45,9 +52,8 @@ def avgs_and_dirs(texels, pmask, comp_mask: tuple):
         if not comp_mask[c]:
             continue
         posm = pmask * ((texc[:, :, c] - avg_t[:, :, c]) > 0)[..., None]
-        s = (torch.einsum("ntp,ntd->npd", posm, texc)
-             - avg * posm.sum(1)[..., None]) * cm
-        n = (s * s * cm).sum(-1)
+        s = (masked_sum(posm, texc) - avg * posm.sum(1)[..., None]) * cm
+        n = sf.sum4(s * s * cm)
         if best is None:
             best, best_norm = s, n
         else:
@@ -60,9 +66,9 @@ def avgs_and_dirs(texels, pmask, comp_mask: tuple):
 def normalize_safe(v, comp_mask: tuple):
     """normalize(v), falling back to the unit diagonal for zero length."""
     cm = _cm(comp_mask, v.device)
-    lensq = (v * v * cm).sum(-1, keepdim=True)
+    lensq = sf.sum4(v * v * cm)[..., None]
     unit = cm / float(sum(comp_mask)) ** 0.5
-    safe = v / torch.sqrt(torch.where(lensq > 0, lensq, 1.0))
+    safe = v / sf.sqrt(torch.where(lensq > 0, lensq, 1.0))
     return torch.where(lensq == 0.0, unit, safe)
 
 
@@ -111,12 +117,12 @@ def ideal_colors_and_weights(texels, pmask, counts, data_min, data_max,
                 "ep1": ep1, "is_constant_wes": const_wes}
 
     avg, dirv = avgs_and_dirs(texels, pmask, comp_mask)
-    flip_sum = dirv[..., :3].sum(-1) if ncomp >= 3 else (dirv * cm).sum(-1)
+    flip_sum = sf.sum3(dirv) if ncomp >= 3 else sf.sum4(dirv * cm)
     dirv = torch.where((flip_sum < 0)[..., None], -dirv, dirv)
     b = normalize_safe(dirv, comp_mask)
     avg_t = torch.einsum("ntp,npc->ntc", pmask, avg)
     b_t = torch.einsum("ntp,npc->ntc", pmask, b)
-    param = ((texels - avg_t) * b_t * cm).sum(-1)
+    param = sf.sum4((texels - avg_t) * b_t * cm)
     lowp, highp, w, wes, const_wes = line(param)
     ep0 = avg + b * lowp[..., None]
     ep1 = avg + b * highp[..., None]

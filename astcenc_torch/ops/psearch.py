@@ -11,10 +11,12 @@ uncorrelated line and to the same-chroma line, and a line-length penalty
 alpha is constant rank on RGB only.
 
 On the card (``csrc/psearch.cu``) one thread block takes one ASTC block:
-its texels are loaded once into shared memory, and its warps take the S
-candidates in turn, each reading its candidate's partition-of-texel row
-from the partition table by packed index (no (N, S, T) tensor is built),
-lanes over texels, sums by warp shuffles.
+its texels are loaded once into shared memory, and each half-warp takes one
+of the S candidates in turn. A lane reads its texels' partition ids from
+the partition table by packed index into one register (no (N, S, T) tensor
+is built), each phase is one pass over its texels for all partitions, and
+the sums are reduced by shuffles in the order of a one-warp-per-candidate
+kernel.
 
 The plain version is the XLA branch of ``partition_search.py:210-263``.
 """

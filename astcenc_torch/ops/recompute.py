@@ -71,9 +71,7 @@ def recompute_ideal_colors_1plane(texels, pmask, counts, undec_weights,
     tc = counts.to(torch.float32)
     rgba_weight_sum = torch.clamp(cw * tc[..., None], min=1e-17)
     mean_rgb = (rgba_sum / rgba_weight_sum)[..., :3]
-    # Correctly rounded float32 sqrt, as sqrtf in the kernel (the CPU
-    # float32 torch.sqrt is not).
-    norm = torch.sqrt(sf.sum3(mean_rgb * mean_rgb).double()).float()[..., None]
+    norm = sf.sqrt(sf.sum3(mean_rgb * mean_rgb))[..., None]
     scale_dir = mean_rgb / torch.where(norm > 0, norm, 1.0)
     scale_dir_t = torch.einsum("ntp,npc->ntc", pmask, scale_dir)
     scale = sf.sum3(scale_dir_t * texels[..., :3])
@@ -212,7 +210,7 @@ def recompute_ideal_colors_2planes(texels, undec_w1, undec_w2, p2c,
 
     rgba_weight_sum = torch.clamp(cw * T, min=1e-17)
     mean_rgb = data_mean[..., :3]
-    norm = torch.sqrt(sf.sum3(mean_rgb * mean_rgb).double()).float()[:, None]
+    norm = sf.sqrt(sf.sum3(mean_rgb * mean_rgb))[:, None]
     scale_dir = mean_rgb / torch.where(norm > 0, norm, 1.0)
     scale = sf.sum3(scale_dir[:, None, :] * texels[..., :3])      # (N, T)
     scale_min = scale.amin(1)

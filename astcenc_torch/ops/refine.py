@@ -29,16 +29,19 @@ trial error and realign step live in ``csrc/refine_common.cuh``) texels,
 per-texel decoded endpoints and the grids sit in shared memory, the texel
 reductions are warp shuffles, and the stencil sums use the sparse form of
 the decimation stencils (at most 4 taps per texel, and per-weight texel
-lists for the transposed sums). The R rounds stay in one launch. K3 runs
-one warp per lane, with the endpoint pack and decode run redundantly on
-every lane of the warp. K2 runs one CTA per block and one warp per
-candidate: the block's texels and the round-independent refit terms of its
-partitions are loaded and computed once per CTA; a warp takes all its
-partitions' refit sums in one pass over the texels, and its lanes solve,
-pack (the matched-format packs beside the plain ones) and decode the
-partitions side by side. The work is a long chain of dependent scalar and
-warp-reduction steps per lane: the kernels are latency bound, and rely on
-many resident warps to hide that latency.
+lists for the transposed sums). The R rounds stay in one launch. K2 runs
+one CTA per block and one warp per candidate: the block's texels and the
+round-independent refit terms of its partitions are loaded and computed
+once per CTA; a warp takes all its partitions' refit sums in one pass over
+the texels, and its lanes solve, pack (the matched-format packs beside the
+plain ones) and decode the partitions side by side. K3 runs one CTA per
+texel row and a warp per (plane-2 component, candidate) pair that reads
+it: the row's texels and RGB-scale projection are shared, lanes 0-4 solve
+the channels and the RGB-scale line side by side, lanes 0-3 run the trials
+of an RGB(A) pack, and the two planes realign at once on the two halves of
+the warp. The work is a long chain of dependent scalar and warp-reduction
+steps per lane: the kernels are latency bound, and rely on many resident
+warps to hide that latency.
 
 The plain versions are the XLA refine loops of ``trial.py:660-721``
 (1 plane) and ``:1227-1288`` (2 planes), built on ``recompute``,
@@ -398,6 +401,8 @@ def trial2_refine_cuda(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
                          f"over {N0} texel rows")
     if W > 63:
         raise ValueError(f"grid of {W} weights: K3 takes at most 63")
+    if not 1 <= C <= 8:
+        raise ValueError(f"candidate count {C} outside 1..8")
     for name, t in (("wg1_0", wg1_0), ("wg2_0", wg2_0)):
         _build.check(t, name, i32, (NC, W))
     for name, t in (("dm", dm), ("wq", wq), ("cq", cq),

@@ -4,9 +4,9 @@ Port of ``astcenc_tpu/ops/softfloat.py`` (reference
 astcenc_vecmathlib.h:495-620): ASTC decodes to UNORM16 (LDR) or 16-bit LNS
 (HDR) integers, converts those to fp16 bit patterns, and only then widens
 to fp32, so the conversions are integer ops. ``float_to_lns`` is the
-encoder's HDR texel load. ``div`` (the float32 quotient by a constant) and
-``sum3`` (a three-channel sum in a fixed order) give the same bits on
-every device.
+encoder's HDR texel load. ``div`` (the float32 quotient by a constant),
+``sum3``/``sum4`` (channel sums in a fixed order) and ``sqrt`` (the
+correctly rounded float32 root) give the same bits on every device.
 """
 
 from __future__ import annotations
@@ -26,8 +26,22 @@ def div(x, d: float):
 def sum3(v):
     """(v0 + v1) + v2 over the last axis, in that order on every device
     (a reduction such as ``.sum(-1)`` may add in another order on the
-    card)."""
+    card; this is the CPU's order)."""
     return (v[..., 0] + v[..., 1]) + v[..., 2]
+
+
+def sum4(v):
+    """((v0 + v1) + v2) + v3 over the last axis, the CPU's ``.sum(-1)`` of
+    four channels, in that order on every device."""
+    return ((v[..., 0] + v[..., 1]) + v[..., 2]) + v[..., 3]
+
+
+def sqrt(x):
+    """The correctly rounded float32 square root on every device (the
+    card's; the CPU's float32 ``torch.sqrt`` misses it by one bit in a few
+    values in a thousand). The root of the float64 value, rounded to
+    float32, is the correctly rounded float32 root."""
+    return torch.sqrt(x.double()).float()
 
 
 def _bit_length(p: torch.Tensor) -> torch.Tensor:

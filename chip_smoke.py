@@ -10,15 +10,18 @@ non-zero and never prints the last line:
 2. build: compile kernels K1 (mode search), K2 (1-plane refinement), K3
    (2-plane refinement), K4 (partition line errors), K5 (one 1-plane HDR
    round), K6 and K7 (one 2-plane HDR round, its bootstrap), K8 (per-row
-   table gather) and K9 (the colour pack, one launch per pack call, in
-   place of the TPU's colour quantizer lookup) from astcenc_torch/csrc with
-   nvcc for sm_90a, one nvcc per source, started together;
+   table gather), K9 (the colour pack, one launch per pack call, in place
+   of the TPU's colour quantizer lookup) and the texel-sum kernel (the
+   glue's texel sums in the CPU's order; no TPU kernel) from
+   astcenc_torch/csrc with nvcc for sm_90a, one nvcc per source, started
+   together;
 3. kernels: capture the real inputs of every kernel form from a 512x512
    main-path encode (K1 with 1 and 2 planes and 2 and 3 partitions, K2 at
-   1-3 partitions, K3, K4 at 2 and 3 partitions) and hold each kernel
-   against its plain PyTorch version on the card (the tolerances of
-   tests/test_pallas.py; K4: 99.9% of the line errors within 1e-4 and
-   99% of the selected seeds equal), timing both with CUDA events;
+   1-3 partitions, K3, K4 at 2 and 3 partitions, the texel-sum kernel in
+   each of its three orders) and hold each kernel against its plain
+   PyTorch version on the card (the tolerances of tests/test_pallas.py;
+   K4: 99.9% of the line errors within 1e-4 and 99% of the selected seeds
+   equal; the texel sums bit for bit), timing both with CUDA events;
 4. stage 1: the earlier slice's configuration (partition count limit 1,
    2-plane correlation limit 0) at 512x512, launch counts read around it;
 5. main path: a 2048x2048 synthetic RGBA8 texture (its right half with an
@@ -42,10 +45,8 @@ non-zero and never prints the last line:
    alpha of its own) through api.compress_image at 6x6 -medium -ch (phase
    7's encode was the warm-up); a second encode must be identical and is
    timed too; decoded to float32: encode rate, mPSNR, log-RMSE, block
-   counts by kind and by endpoint format, launch counts; a profiled encode
-   of the whole texture (device ops, idle share, K9 launches beside the
-   K9 launches and device ops of the earlier lookup kernel); then a
-   profiled encode of its central 1024x1024 quarter;
+   counts by kind and by endpoint format, launch counts; then a profiled
+   encode of its central 1024x1024 quarter (device ops, idle share);
 9. HDR crop: a 256x256 crop of it at -cH through the kernels and through
    the plain versions, >= 99% of blocks identical, HDR alpha present;
 10. K8: capture the first realign lookup of a 512x512 main-path encode
@@ -75,12 +76,20 @@ non-zero and never prints the last line:
     NumPy fixtures (tests/data/torch_ldr, tests/data/torch_hdr): at least
     90% of the card's blocks identical and PSNR (mPSNR) within 0.05 dB,
     per image, the CPU port's agreement printed beside.
+15. card against CPU (ROADMAP §C3): the glue's summing sites (the
+    encoding-choice errors, the ideal fit, k-means at 2 and 3 partitions,
+    the 2-plane correlation, the block mean) on the first 4096 blocks of
+    the main-path texture, bit for bit on the card and the CPU; and a
+    256x256 LDR and a 256x256 -ch image encoded on the card and by the
+    CPU port, block by block (share printed, at least 99.9% identical).
 
 The fused main paths (phases 5 and 8) must launch K8 no time, as on the
 TPU. The lines before the last are the kernel table as JSON (K1-K4
 launches counted on the LDR main path, K5-K7 and K9 on the HDR path, K8
 on the LDR refine-off path; "redesigned" marks the kernels whose first
-port was redesigned for the card: K1, K2, K8, K9) and the nvidia-smi line;
+port was redesigned for the card: K1, K2, K3, K4, K8, K9), before it the
+texel-sum kernel's line ("port_kernels", the same keys, launches counted
+on the LDR main path; it replaces no TPU kernel) and the nvidia-smi line;
 the last line is
 {"ok": true, "device": {...}}.
 
@@ -395,21 +404,22 @@ def _profile(run):
     return out
 
 
-def _reset(msearch, refine, psearch, gather, color_pack):
+def _reset(msearch, refine, psearch, gather, color_pack, texel_sum):
     msearch.launches = refine.launches = refine.launches2 = 0
     refine.launches_round1 = refine.launches_round2 = 0
     refine.launches_boot2 = psearch.launches = color_pack.launches = 0
-    gather.launches_rows = 0
+    gather.launches_rows = texel_sum.launches = 0
 
 
-def _counts(msearch, refine, psearch, gather, color_pack):
+def _counts(msearch, refine, psearch, gather, color_pack, texel_sum):
     return {"msearch": msearch.launches, "refine": refine.launches,
             "refine2": refine.launches2, "psearch": psearch.launches,
             "refine_round": refine.launches_round1,
             "refine_round2": refine.launches_round2,
             "refine_boot2": refine.launches_boot2,
             "row_gather": gather.launches_rows,
-            "color_pack": color_pack.launches}
+            "color_pack": color_pack.launches,
+            "texel_sum": texel_sum.launches}
 
 
 def _capture_hdr(refine, cph):
@@ -544,6 +554,80 @@ def _block_kinds(decompress, ctx, blocks):
     return out
 
 
+def _capture_sums(ts):
+    """Record, per order, the inputs of the largest texel sum (by N T P C)
+    that the wrapped router sees (the glue never writes them afterwards, so
+    they are kept as they were passed, broadcast views included). Returns
+    (seen, restore)."""
+    seen = {}
+    orig = ts.texel_sum
+
+    def wrap(a, b, order="seq"):
+        size = a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2]
+        old = seen.get(order)
+        if old is None or size > old[0].shape[0] * old[0].shape[1] * \
+                old[0].shape[2] * old[1].shape[2]:
+            seen[order] = (a, b)      # views kept: broadcasts stay
+        return orig(a, b, order)
+
+    ts.texel_sum = wrap
+
+    def restore():
+        ts.texel_sum = orig
+    return seen, restore
+
+
+def _unique_bytes(t) -> int:
+    """Bytes a kernel must read of a possibly broadcast view: the elements
+    its strides reach."""
+    span = 1 + sum((n - 1) * st for n, st in zip(t.shape, t.stride()) if n)
+    return min(span, t.numel()) * t.element_size()
+
+
+def _c3_sites(api, compress_mod, partition_search, img, dev):
+    """Phase 15: per output of the glue's summing sites, how many values the
+    card computes otherwise than the CPU, on the first 4096 blocks of the
+    main-path texture with their (CPU) k-means 2-partitioning as the
+    mask."""
+    from astcenc_torch.ops import formats, ideal
+    cfg = api.config_init(api.Profile.LDR, 6, 6, 1, api.Quality.MEDIUM, 0)
+    blk = compress_mod.image_to_blocks(api.context_alloc(cfg, device="cpu"),
+                                       img)[:4096]
+    cw = (1.0, 1.0, 1.0, 1.0)
+    onehot = torch.nn.functional.one_hot(partition_search.kmeans(
+        torch.from_numpy(blk), cw, blk.shape[1], 2), 2).float()
+
+    def run(d):
+        tex = torch.from_numpy(blk).to(d)
+        pmask = onehot.to(d)
+        st = compress_mod.make_block_state(tex, 1)
+        out = {"block_mean": st["data_mean"],
+               "correlation": compress_mod._lowest_correlation(tex, cw),
+               "kmeans2": partition_search.kmeans(tex, cw, tex.shape[1],
+                                                  2).float(),
+               "kmeans3": partition_search.kmeans(tex, cw, tex.shape[1],
+                                                  3).float()}
+        for cm in ((1, 1, 1, 1), (1, 1, 1, 0)):
+            fit = ideal.ideal_colors_and_weights(
+                tex, pmask, pmask.sum(1), st["data_min"], st["data_max"], cw,
+                cm, omitted_component=None if cm[3] else 3)
+            for k in ("weights", "weight_error_scale", "ep0", "ep1"):
+                out[f"ideal{sum(cm)}_{k}"] = fit[k]
+        lum = st["is_luminance"]
+        fit = ideal.ideal_colors_and_weights(
+            tex, pmask, pmask.sum(1), st["data_min"], st["data_max"], cw,
+            (1, 1, 1, 1))
+        eci = formats.encoding_choice_errors(tex, pmask, fit["ep0"],
+                                             fit["ep1"], cw, lum, 65535.0)
+        for k, v in eci.items():
+            out[f"eci_{k}"] = v.float()
+        return {k: v.cpu() for k, v in out.items()}
+
+    got, want = run(dev), run("cpu")
+    return {k: int((got[k].view(torch.int32) != w.view(torch.int32)).sum())
+            for k, w in want.items()}
+
+
 _DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                      "data")
 
@@ -613,6 +697,7 @@ def main() -> int:
     from astcenc_torch.ops import _build, gather, msearch, psearch, refine
     from astcenc_torch.ops import color_pack as cp
     from astcenc_torch.ops import color_pack_hdr as cph
+    from astcenc_torch.ops import texel_sum as ts
     from astcenc_torch.utils import metrics
 
     smi = _smi()
@@ -633,7 +718,7 @@ def main() -> int:
         how = f"cached libraries loaded in {build_s:.1f} s"
     print(f"build: K1 msearch.cu, K2 refine.cu, K3 refine2.cu, K4 psearch.cu, "
           f"K5 refine_round.cu, K6 and K7 refine_round2.cu, K8 row_gather.cu, "
-          f"K9 color_pack.cu {how}", flush=True)
+          f"K9 color_pack.cu, texel_sum.cu {how}", flush=True)
 
     cfg = api.config_init(api.Profile.LDR, 6, 6, 1, api.Quality.MEDIUM, 0)
     ctx = api.context_alloc(cfg, device=dev)
@@ -642,13 +727,16 @@ def main() -> int:
     img_c = testdata.synthetic_image(CAPTURE, CAPTURE, args.seed + 1,
                                      independent_alpha=True)
     seen, restore = _capture((msearch, refine, psearch))
+    sums_seen, restore_ts = _capture_sums(ts)
     try:
         api.compress_image(ctx, img_c)
     finally:
         restore()
+        restore_ts()
     want_forms = {("K1", "pc1"), ("K1", "two"), ("K1", "pc2"), ("K1", "pc3"),
                   ("K2", "pc1"), ("K2", "pc2"), ("K2", "pc3"), ("K3", "two"),
                   ("K4", "P2"), ("K4", "P3")}
+    assert set(sums_seen) == set(ts._ORDERS), sorted(sums_seen)
     missing = want_forms - set(seen)
     assert not missing, f"forms not captured: {sorted(missing)}"
     stats = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0.0,
@@ -772,13 +860,44 @@ def main() -> int:
                  "seeds_equal": seeds,
                  "valid_equal": valid})
 
+    # The texel-sum kernel in each order, on the largest call of the capture
+    # encode, bit for bit against its plain version on the card; the
+    # library time is the PyTorch call the order reproduces on the CPU.
+    ts_stats = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0.0,
+                "library_ms": 0.0}
+    def library(a, b):
+        return torch.einsum("ntp,ntc->npc", a, b)
+
+    for order, (x, y) in sorted(sums_seen.items()):
+        got = ts.texel_sum_cuda(x, y, order)
+        want = ts.texel_sum_plain(x, y, order)
+        torch.cuda.synchronize()
+        diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        assert diff == 0, f"texel_sum {order}: {diff} values differ"
+        N, T, P = x.shape
+        Cn = y.shape[2]
+        nbytes = (_unique_bytes(x) + _unique_bytes(y)
+                  + got.numel() * got.element_size())
+        ms = _time_ms(lambda: ts.texel_sum_cuda(x, y, order), 20)
+        plain_ms = _time_ms(lambda: ts.texel_sum_plain(x, y, order), 5)
+        lib_ms = _time_ms(lambda: library(x, y), 20)
+        ops = 2.0 * N * P * Cn * T
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bytes", nbytes),
+                     ("ops", ops), ("library_ms", lib_ms)):
+            ts_stats[k] += v
+        bms, by = _bound(nbytes, ops)
+        print(f"kernels: texel_sum {order}: (N, T, P, C) = "
+              f"{(N, T, P, Cn)}, 0 values differ; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms, library {lib_ms:.4f} ms, bound "
+              f"{bms:.5f} ms ({by})", flush=True)
+
     # --- 4. stage 1 (the earlier slice's configuration) --------------------
     cfg1 = api.config_init(api.Profile.LDR, 6, 6, 1, api.Quality.MEDIUM, 0)
     cfg1.tune_partition_count_limit = 1
     cfg1.tune_2plane_early_out_limit_correlation = 0.0
     ctx1 = api.context_alloc(cfg1, device=dev)
     img1 = testdata.synthetic_image(CAPTURE, CAPTURE, args.seed + 2)
-    counters = (msearch, refine, psearch, gather, cp)
+    counters = (msearch, refine, psearch, gather, cp, ts)
     _reset(*counters)
     t0 = time.perf_counter()
     b1 = api.compress_image(ctx1, img1)
@@ -987,19 +1106,10 @@ def main() -> int:
           f"mPSNR {mp:.4f} dB, log-RMSE {lr:.5f}, blocks "
           f"{json.dumps(kinds_h)}, endpoint formats {json.dumps(fmts_h)}, "
           f"launches {json.dumps(launches_h)} | {smi}", flush=True)
-    # The whole texture profiled once: its device operations and idle share,
-    # and the pack kernel's launches beside the per-lookup kernel's that it
-    # replaced (PERF.md: 826,525 device operations and 21,332 lookup
-    # launches per encode of this texture).
-    _reset(*counters)
-    prof_w = _profile(lambda: api.compress_image(ctx_h, img_h))
-    n_w = _counts(*counters)
-    print(f"{at()} HDR profile ({HDR_SIZE}x{HDR_SIZE}, whole texture): "
-          f"{json.dumps(prof_w)}, K9 color_pack launches {n_w['color_pack']} "
-          f"(the per-lookup kernel it replaced, PERF.md: 21332 launches, "
-          f"826525 device ops) | {smi}", flush=True)
-    # Profiled again on the central quarter (both halves of the alpha),
-    # whose fused blocks phase 13 compares with.
+    # Profiled on the central quarter (both halves of the alpha), whose
+    # fused blocks phase 13 compares with. (The whole texture's profile,
+    # PR 3-6, took 80-90 s of this script's time, mostly the profiler's own
+    # processing.)
     q = HDR_SIZE // 4
     img_p = np.ascontiguousarray(img_h[q:3 * q, q:3 * q])
     held = []                  # the fused blocks of the centre, for phase 13
@@ -1204,6 +1314,26 @@ def main() -> int:
     for row in _jax_fixtures(api, testdata, metrics, dev):
         print(f"{at()} JAX blocks: {json.dumps(row)} | {smi}", flush=True)
 
+    # --- 15. card against CPU: the summing sites and two 256x256 encodes -----
+    sites = _c3_sites(api, compress_mod, partition_search, img, dev)
+    print(f"{at()} C3 sites, card vs CPU (values that differ): "
+          f"{json.dumps(sites)}", flush=True)
+    assert not any(sites.values()), sites
+    for tag, c3_img, c3_cfg in (
+            ("LDR", testdata.synthetic_image(CROP, CROP, args.seed + 5,
+                                             independent_alpha=True), cfg),
+            ("-ch", testdata.synthetic_hdr_image(
+                CROP, CROP, args.seed + 5, independent_alpha=True), cfg_h)):
+        got = api.compress_image(api.context_alloc(c3_cfg, device=dev),
+                                 c3_img)
+        want = api.compress_image(api.context_alloc(c3_cfg, device="cpu"),
+                                  c3_img)
+        same = (got == want).all(1)
+        print(f"{at()} C3 {tag} {CROP}x{CROP}: {float(same.mean()):.6f} of "
+              f"{same.size} blocks identical card vs CPU; differing blocks "
+              f"{np.flatnonzero(~same).tolist()}", flush=True)
+        assert same.mean() >= 0.999, (tag, float(same.mean()))
+
     meta = {"K1": ("msearch", "astcenc_torch/csrc/msearch.cu",
                    "astcenc_tpu/ops/msearch_pallas.py:281"),
             "K2": ("refine", "astcenc_torch/csrc/refine.cu",
@@ -1222,7 +1352,7 @@ def main() -> int:
                    "astcenc_tpu/ops/gather_pallas.py:120"),
             "K9": ("color_pack", "astcenc_torch/csrc/color_pack.cu",
                    "astcenc_tpu/ops/gather_pallas.py:170")}
-    redesigned = ("K1", "K2", "K8", "K9")
+    redesigned = ("K1", "K2", "K3", "K4", "K8", "K9")
     kernels = []
     for kern, (name, src, rep) in meta.items():
         s = stats[kern]
@@ -1238,6 +1368,15 @@ def main() -> int:
                         "plain_ms": s["plain_ms"], "bound_ms": bms,
                         "bound_by": by, "library_ms": s["library_ms"],
                         "redesigned": kern in redesigned})
+    assert launches["texel_sum"] > 0, "texel_sum was not launched"
+    bms, by = _bound(ts_stats["bytes"], ts_stats["ops"])
+    print(json.dumps({"port_kernels": [{
+        "name": "texel_sum", "route": "cuda",
+        "source": "astcenc_torch/csrc/texel_sum.cu", "replaces": None,
+        "launches": launches["texel_sum"], "max_abs_err": 0.0,
+        "ms": ts_stats["ms"], "plain_ms": ts_stats["plain_ms"],
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": ts_stats["library_ms"]}]}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

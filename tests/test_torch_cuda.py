@@ -520,9 +520,9 @@ def test_refine_off_hdr_crop_matches_fused(cuda_device, monkeypatch):
 
 def _footprint_inputs(dev, bx, quality, kind, pc, n_blocks, seed):
     """The arguments the plain trial front end hands the mode search (K1)
-    and the 1-plane refinement (K2) on their first call, for a seeded
-    synthetic image at a bx x bx footprint and a preset; for pc >= 2 on
-    seeded partitionings of the partition table."""
+    and the 1-plane (K2) or 2-plane refinement (K3) on their first call,
+    for a seeded synthetic image at a bx x bx footprint and a preset; for
+    pc >= 2 on seeded partitionings of the partition table."""
     from astcenc_torch.ops import refine
     ctx = api.context_alloc(api.config_init(
         api.Profile.LDR, bx, bx, 1, getattr(api.Quality, quality), 0),
@@ -535,7 +535,8 @@ def _footprint_inputs(dev, bx, quality, kind, pc, n_blocks, seed):
     ql = torch.full((N,), 11, dtype=torch.int32, device=dev)
     seen = {}
     saved = {(m, n): getattr(m, n) for m, n in ((msearch, "mode_search"),
-                                                (refine, "trial1_refine"))}
+                                                (refine, "trial1_refine"),
+                                                (refine, "trial2_refine"))}
 
     def grab(key, fn):
         def wrap(*a, **kw):
@@ -546,6 +547,7 @@ def _footprint_inputs(dev, bx, quality, kind, pc, n_blocks, seed):
 
     msearch.mode_search = grab("K1", saved[(msearch, "mode_search")])
     refine.trial1_refine = grab("K2", saved[(refine, "trial1_refine")])
+    refine.trial2_refine = grab("K3", saved[(refine, "trial2_refine")])
     try:
         if kind == "two":
             ext = torch.ones((N, 4), dtype=torch.bool, device=dev)
@@ -618,6 +620,76 @@ def test_refine_kernel_footprints(cuda_device, bx, quality, pc):
     live = rx["err"] < 1e29
     np.testing.assert_array_equal(rk["err"] < 1e29, live)
     _check_records(rk, rx, ("fmt", "vals", "w"))
+
+
+@pytest.mark.parametrize("bx,quality", [(8, "THOROUGH"),
+                                        (12, "EXHAUSTIVE")])
+def test_refine2_kernel_footprints(cuda_device, bx, quality):
+    """K3 against its plain version at 8x8 -thorough and 12x12 -exhaustive
+    two planes (T up to 144, C up to 8, R = 4), on the inputs the plain
+    front end gives it: the records at the record bounds, and every output
+    bit for bit (K3's sums run in its plain version's order)."""
+    from astcenc_torch.ops import refine
+    n = {8: 64, 12: 32}[bx]
+    a, _ = _footprint_inputs(cuda_device, bx, quality, "two", 1, n,
+                             bx + 40)["K3"]
+    got, want = refine.trial2_refine_cuda(*a), refine.trial2_refine_plain(*a)
+    for k, w in want.items():
+        diff = int((_bits(got[k]) != _bits(w)).sum())
+        print(f"K3 {bx}x{bx} {k}: {diff} of {w.numel()} values differ")
+        assert diff == 0, k
+
+
+def _psearch_inputs(dev, bx, P, n_blocks, seed):
+    """The arguments the partition search hands K4 (the line errors) for a
+    seeded synthetic image at a bx x bx footprint, -thorough (S up to 82),
+    with alpha varying in the right half's blocks and constant in the
+    left half's; and the seed of each partitioning."""
+    ctx = api.context_alloc(api.config_init(
+        api.Profile.LDR, bx, bx, 1, api.Quality.THOROUGH, 0), device=dev)
+    img = testdata.synthetic_image(bx * 8, bx * (-(-n_blocks // 8)), seed,
+                                   independent_alpha=True)
+    img[:, :img.shape[1] // 2, 3] = 255
+    tex = torch.from_numpy(tc.image_to_blocks(ctx, img)[:n_blocks]).to(dev)
+    st = tc.make_block_state(tex, 1)
+    cfg = ctx.config
+    limit = getattr(cfg, f"tune_{P}partition_index_limit")
+    seen = {}
+    orig = psearch.line_errors
+
+    def grab(*a, **kw):
+        seen.setdefault("K4", a)
+        return orig(*a, **kw)
+
+    psearch.line_errors = grab
+    try:
+        partition_search.find_best_partition_candidates(
+            st, ctx.partition_tables(P), bx * bx, trial.effective_cw(cfg), P,
+            limit, 2, use_kernels=False)
+    finally:
+        psearch.line_errors = orig
+    return seen["K4"], ctx.partition_tables(P).seed
+
+
+@pytest.mark.parametrize("bx", [4, 8, 12])
+@pytest.mark.parametrize("P", [2, 3, 4])
+def test_psearch_kernel_footprints(cuda_device, bx, P):
+    """K4 against its plain version at 4x4, 8x8 and 12x12 (T up to 144),
+    2-4 partitions, blocks with and without alpha, on the inputs the
+    partition search gives it: chip_smoke.py's bounds (99.9% of the line
+    errors within 1e-4, 99% of the selected seeds and valid flags)."""
+    a, seeds = _psearch_inputs(cuda_device, bx, P,
+                               {4: 256, 8: 64, 12: 32}[bx], bx + P)
+    uk, sk = psearch.line_errors_cuda(*a)
+    ux, sx = psearch.line_errors_plain(*a)
+    for g, w in ((uk, ux), (sk, sx)):
+        rel = ((g - w).abs() / w.abs().clamp(min=1e-30)).cpu().numpy()
+        assert (rel <= 1e-4).mean() >= 0.999, rel.max()
+    top = a[2]
+    sel_k = partition_search.select_candidates(uk, sk, seeds, top.long(), 2)
+    sel_x = partition_search.select_candidates(ux, sx, seeds, top.long(), 2)
+    assert (sel_k[0] == sel_x[0]).float().mean() >= 0.99
+    assert (sel_k[1] == sel_x[1]).float().mean() >= 0.99
 
 
 def _bits(t):
@@ -700,13 +772,12 @@ def test_constant_divisions_match_cpu(cuda_device, case):
 
 
 def test_encoding_choice_errors_against_cpu(cuda_device):
-    """ROADMAP §C3, open: formats.encoding_choice_errors sums over texels
-    with einsum (a batched product, cuBLAS on the card) and over channels
-    with .sum(-1), which the card adds in another order than the CPU. On
-    seeded 2-partition blocks this prints how many of its values differ
-    from the CPU's and by how much, holds each within 1e-4 of its
-    partition's error scale (the weighted sum of its squared texels), and
-    the flags bit for bit."""
+    """ROADMAP §C3: formats.encoding_choice_errors sums over texels through
+    the texel-sum kernel and over channels in a fixed order, so the card
+    adds as the CPU does. On seeded 2-partition blocks this prints how many
+    of its values differ from the CPU's and by how much (of the
+    partition's error scale, the weighted sum of its squared texels), and
+    holds every value and flag bit for bit."""
     from astcenc_torch.ops import formats
     rng = np.random.default_rng(67)
     N, P, T = 4096, 2, 36
@@ -738,7 +809,138 @@ def test_encoding_choice_errors_against_cpu(cuda_device):
         print(f"encoding_choice_errors {k}: {diff} of {w.numel()} values "
               f"differ from the CPU's, at most {rel.max():.3e} of the "
               f"partition's scale")
-        assert bool(torch.isfinite(g).all()) and rel.max() <= 1e-4, k
+        assert bool(torch.isfinite(g).all()) and diff == 0, k
+
+
+@pytest.mark.parametrize("T", [16, 36, 144, 216])
+def test_texel_sum_kernel_matches_plain(cuda_device, T):
+    """The texel-sum kernel against its plain version, bit for bit, in its
+    three orders, on strided and broadcast views as the glue passes them:
+    a one-hot mask with texels, a channel slice and three channels, the
+    channel pairs of the correlation, the block sum and the prefix sums."""
+    from astcenc_torch.ops import texel_sum as ts
+    rng = np.random.default_rng(T)
+    x = torch.from_numpy(rng.normal(0, 3e4, (256, T, 4)).astype(
+        np.float32)).to(cuda_device)
+    m = torch.from_numpy(np.eye(3, dtype=np.float32)[
+        rng.integers(0, 3, (256, T))]).to(cuda_device)
+    ones = torch.ones((), device=cuda_device).expand(256, T, 1)
+    upper = torch.ones((T, T), device=cuda_device).triu().expand(256, T, T)
+    for a, b, order in ((m, x, "seq"), (m, x[..., 1:2], "seq"),
+                        (m, x[..., :3], "seq"), (x, x, "seq"),
+                        (ones, x, "outer"), (upper, x[..., :1].abs(), "wide")):
+        got = ts.texel_sum_cuda(a, b, order)
+        want = ts.texel_sum_plain(a, b, order)
+        assert int((_bits(got) != _bits(want)).sum()) == 0, (order, b.shape)
+
+
+def _site_inputs(dev, T=36):
+    """Seeded block texels for the summing sites: the 6x6 blocks of a
+    synthetic LDR image (smooth, correlated channels, an independent alpha
+    half) and as many uniform random blocks; a 2-partition one-hot mask."""
+    rng = np.random.default_rng(71)
+    img = testdata.synthetic_image(192, 384, 71, independent_alpha=True)
+    cfg = api.config_init(api.Profile.LDR, 6, 6, 1, api.Quality.MEDIUM, 0)
+    blk = tc.image_to_blocks(api.context_alloc(cfg, device="cpu"), img)
+    tex = np.concatenate([blk, rng.uniform(0, 65535, blk.shape).astype(
+        np.float32)])
+    pmask = np.eye(2, dtype=np.float32)[rng.integers(0, 2, tex.shape[:2])]
+    return (torch.from_numpy(tex).to(dev), torch.from_numpy(pmask).to(dev),
+            rng)
+
+
+def _sum_site(case, dev):
+    """Named outputs of one site that sums over texels or channels outside
+    any kernel, on ``dev``, from seeded inputs (ROADMAP §C3)."""
+    from astcenc_torch.ops import ideal, recompute
+    tex, pmask, rng = _site_inputs(dev)
+    N, T, _ = tex.shape
+    cw = (1.0, 1.0, 1.0, 1.0)
+    if case == "ideal_fit":
+        out = {}
+        for cm in ((1, 1, 1, 1), (1, 1, 1, 0)):
+            avg, dirv = ideal.avgs_and_dirs(tex, pmask, cm)
+            fit = ideal.ideal_colors_and_weights(
+                tex, pmask, pmask.sum(1), tex.amin(1), tex.amax(1), cw, cm,
+                omitted_component=None if cm[3] else 3)
+            out.update({f"{k}{sum(cm)}": v for k, v in (
+                ("avg", avg), ("dir", dirv),
+                ("unit", ideal.normalize_safe(dirv, cm)),
+                ("weights", fit["weights"]), ("wes", fit["weight_error_scale"]),
+                ("ep0_", fit["ep0"]), ("ep1_", fit["ep1"]))})
+        return out
+    if case == "kmeans":
+        return {f"part{P}": partition_search.kmeans(tex, cw, T, P)
+                for P in (2, 3, 4)}
+    if case == "correlation":
+        return {"lowest": tc._lowest_correlation(tex, cw)}
+    if case == "block_state":
+        st = tc.make_block_state(tex, 1)
+        return {k: st[k] for k in ("data_mean", "data_min", "data_max")}
+    # The HDR refit (-ch): 1 plane at 2 partitions, 2 planes.
+    u = torch.from_numpy((rng.integers(0, 65, (N, T)) / 64.0).astype(
+        np.float32)).to(dev)
+    u2 = torch.from_numpy((rng.integers(0, 65, (N, T)) / 64.0).astype(
+        np.float32)).to(dev)
+    e0 = torch.from_numpy(rng.uniform(0, 30000, (N, 2, 4)).astype(
+        np.float32)).to(dev)
+    e1 = e0 + 1000.0
+    r1 = recompute.recompute_ideal_colors_1plane(
+        tex, pmask, pmask.sum(1), u, cw, e0, e1, is_hdr=True)
+    p2c = torch.from_numpy(rng.integers(0, 4, N).astype(np.int32)).to(dev)
+    r2 = recompute.recompute_ideal_colors_2planes(
+        tex, u, u2, p2c, cw, tex.cpu().mean(1).to(dev), e0[:, 0], e1[:, 0],
+        is_hdr=True)
+    return {**{f"{k}_1": v for k, v in r1.items()},
+            **{f"{k}_2": v for k, v in r2.items()}}
+
+
+@pytest.mark.parametrize("case", ["ideal_fit", "kmeans", "correlation",
+                                  "block_state", "hdr_refit"])
+def test_sum_sites_match_cpu(cuda_device, case):
+    """ROADMAP §C3: the sites that sum over texels or channels outside the
+    kernels give the CPU's values on the card, bit for bit: the ideal fit
+    of the trial front end (partition means, dominant directions, their
+    normalization, the projection), the k-means partition assignment, the
+    2-plane correlation gate, the block state and the HDR refit. Prints
+    how many values of each output differ."""
+    got, want = (_sum_site(case, d) for d in (cuda_device, "cpu"))
+    bad = {}
+    for k, w in want.items():
+        diff = int((_bits(got[k]) != _bits(w)).sum())
+        print(f"{case} {k}: {diff} of {w.numel()} values differ from the "
+              f"CPU's")
+        if diff:
+            bad[k] = diff
+    assert not bad, bad
+
+
+def _card_vs_cpu(dev, hdr):
+    """A 256x256 image at 6x6 -medium (LDR, or -ch on a float16 image)
+    encoded on the card and by the CPU port: the share of identical blocks
+    and the indices of the others."""
+    if hdr:
+        img = testdata.synthetic_hdr_image(256, 256, 5, independent_alpha=True)
+        prof = api.Profile.HDR_RGB_LDR_A
+    else:
+        img = testdata.synthetic_image(256, 256, 5, independent_alpha=True)
+        prof = api.Profile.LDR
+    cfg = api.config_init(prof, 6, 6, 1, api.Quality.MEDIUM, 0)
+    got = api.compress_image(api.context_alloc(cfg, device=dev), img)
+    want = api.compress_image(api.context_alloc(cfg, device="cpu"), img)
+    same = (got == want).all(1)
+    return float(same.mean()), np.flatnonzero(~same)
+
+
+@pytest.mark.parametrize("hdr", [False, True], ids=["ldr", "ch"])
+def test_card_encode_matches_cpu(cuda_device, hdr):
+    """ROADMAP §C3: a 256x256 image encoded on the card and by the CPU port,
+    block by block. Prints the share of identical blocks and the blocks
+    that differ."""
+    share, diff = _card_vs_cpu(cuda_device, hdr)
+    print(f"{'-ch' if hdr else 'LDR'} 256x256: {share:.6f} of blocks "
+          f"identical card vs CPU; differing blocks {diff.tolist()}")
+    assert share == 1.0, diff.tolist()
 
 
 def _psnr(a, b):

@@ -7,16 +7,17 @@ of blocks identical and the decoded PSNR within 0.05 dB, per image.
 
 A JAX -medium encode compiles for minutes on a CPU, so both images go
 through JAX in one call, side by side on one canvas (the block grid keeps
-them apart: blocks never straddle the seam), and ``jax_reference`` caches
-that encode and its symbolic blocks for the whole process
-(tests/test_torch_physical.py packs them too).
-
-JAX's blocks of both images are also committed as NumPy fixtures,
-``tests/data/torch_ldr/ref_medium_<name>.npz`` (the seed, the shape, the
-independent-alpha flag and the blocks), for the card's tests, which have
-no jax (tests/test_torch_cuda.py, chip_smoke.py). A tier-1 test holds them
-to ``jax_reference()``'s blocks; the ``slow`` test rewrites them into a
-temporary directory and compares. To rebuild them:
+them apart: blocks never straddle the seam): ``jax_reference``. Its
+results never change, so they are committed as NumPy fixtures and the
+tests read those: ``tests/data/torch_ldr/ref_medium_<name>.npz`` (the
+seed, the shape, the independent-alpha flag and JAX's blocks of each
+image; the card's tests, which have no jax, read them too:
+tests/test_torch_cuda.py, chip_smoke.py) and ``ref_medium_scb.npz`` (the
+canvas's symbolic blocks as JAX's finalize step hands them to the pack,
+and their JAX physical blocks; tests/test_torch_physical.py packs them).
+The ``slow`` test encodes with JAX again, rewrites the fixtures into a
+temporary directory and compares them with the committed ones. To rebuild
+them:
 
     JAX_PLATFORMS=cpu python -c "import sys; sys.path.insert(0, 'tests');
         import test_torch_main as m; m.write_fixtures()"
@@ -50,6 +51,14 @@ def fixture_path(name, root=FIXTURES):
     return os.path.join(root, f"ref_medium_{name}.npz")
 
 
+def load_scb_fixture(root=FIXTURES):
+    """(scb, packed): the committed symbolic blocks of the canvas and their
+    JAX physical blocks."""
+    fx = np.load(fixture_path("scb", root))
+    return ({k[4:]: fx[k] for k in fx.files if k.startswith("scb_")},
+            fx["packed"])
+
+
 def write_fixtures(root=FIXTURES):
     """JAX's blocks of each image (``jax_reference()``) as a fixture."""
     ref = jax_reference()
@@ -59,6 +68,8 @@ def write_fixtures(root=FIXTURES):
                  shape=np.array([h, w], np.int32),
                  independent_alpha=np.bool_(alpha),
                  blocks=ref["blocks"][name])
+    np.savez_compressed(fixture_path("scb", root), packed=ref["packed"],
+                        **{f"scb_{k}": v for k, v in ref["scb"].items()})
 
 
 def config(api):
@@ -70,6 +81,18 @@ def _psnr(a, b):
     return 10.0 * np.log10(255.0 ** 2 / mse)
 
 
+def _canvas_rows():
+    """Rows of each image's blocks in the 16 x 24 block canvas."""
+    by, bx = np.divmod(np.arange(16 * 24), 144 // 6)
+    return {"rgba96": np.nonzero(bx < 16)[0],
+            "alpha48": np.nonzero((bx >= 16) & (by < 8))[0]}
+
+
+def _images():
+    return {k: testdata.synthetic_image(h, w, s, independent_alpha=a)
+            for k, (h, w, s, a) in IMAGES.items()}
+
+
 @functools.lru_cache(maxsize=None)
 def jax_reference():
     """JAX's encode of both images in one call. Returns a dict: images,
@@ -77,18 +100,14 @@ def jax_reference():
     ``rows[name]``, and ``scb``: the canvas's symbolic blocks as JAX's
     finalize step hands them to the pack, with ``packed`` their JAX
     physical blocks."""
-    imgs = {k: testdata.synthetic_image(h, w, s, independent_alpha=a)
-            for k, (h, w, s, a) in IMAGES.items()}
+    imgs = _images()
     canvas = np.zeros((96, 144, 4), np.uint8)
     canvas[:, :96] = imgs["rgba96"]
     canvas[:48, 96:] = imgs["alpha48"]
     canvas[48:, 96:] = imgs["alpha48"][::-1]
     jctx = japi.context_alloc(config(japi))
     got = japi.compress_image(jctx, canvas)
-    nx = 144 // 6
-    by, bx = np.divmod(np.arange(got.shape[0]), nx)
-    rows = {"rgba96": np.nonzero(bx < 16)[0],
-            "alpha48": np.nonzero((bx >= 16) & (by < 8))[0]}
+    rows = _canvas_rows()
 
     # The same batch through JAX's stages (compress_symbolic_batch at the
     # bucket compress_image padded to, so every stage reuses its compile).
@@ -124,7 +143,12 @@ def jax_reference():
 
 @pytest.fixture(scope="module")
 def ref():
-    return jax_reference()
+    """``jax_reference()``'s results, read from the committed fixtures."""
+    scb, packed = load_scb_fixture()
+    return {"images": _images(), "rows": _canvas_rows(),
+            "blocks": {k: np.load(fixture_path(k))["blocks"]
+                       for k in IMAGES},
+            "scb": scb, "packed": packed}
 
 
 def _kinds(scb, rows):
@@ -145,8 +169,10 @@ def test_main_path_matches_jax(ref, name):
     assert got.shape == want.shape == ((h // 6) * (w // 6), 16)
     ident = (got == want).all(1).mean()
     assert ident >= 0.9, ident
+    # JAX's blocks decoded by the port's decoder, which is JAX's bit for
+    # bit (tests/test_torch_decode.py).
     dg = tapi.decompress_image(tctx, got, w, h)[0]
-    dw = japi.decompress_image(ref["jctx"], want, w, h)[0]
+    dw = tapi.decompress_image(tctx, want, w, h)[0]
     pg, pw = _psnr(dg, img), _psnr(dw, img)
     # Every later stage decides blocks of this image in JAX's encode.
     kinds = _kinds(ref["scb"], ref["rows"][name])
@@ -177,18 +203,36 @@ def test_block_types_match_symbolic(ref):
 
 @pytest.mark.parametrize("name", list(IMAGES))
 def test_fixture_matches_jax(ref, name):
-    """The committed fixture holds JAX's blocks of this image."""
+    """The committed fixture of this image names the image and holds JAX's
+    blocks of it: those of the committed canvas at the image's rows (the
+    slow test_rebuild_fixture_unchanged holds both to a fresh JAX
+    encode)."""
     h, w, seed, alpha = IMAGES[name]
     fx = np.load(fixture_path(name))
     assert int(fx["seed"]) == seed and tuple(fx["shape"]) == (h, w)
     assert bool(fx["independent_alpha"]) == alpha
-    np.testing.assert_array_equal(fx["blocks"], ref["blocks"][name])
+    np.testing.assert_array_equal(fx["blocks"],
+                                  ref["packed"][ref["rows"][name]])
+
+
+def test_canvas_fixture_decodes_to_images(ref):
+    """The committed canvas blocks encode this file's images: each image's
+    rows, decoded by the port, give the PSNR of JAX's encode of it
+    (34.377785 and 30.941039 dB, printed by test_main_path_matches_jax at
+    the fixtures' making)."""
+    tctx = tapi.context_alloc(config(tapi), device="cpu")
+    for name, want_db in (("rgba96", 34.377785), ("alpha48", 30.941039)):
+        img = ref["images"][name]
+        h, w = img.shape[:2]
+        dec = tapi.decompress_image(
+            tctx, ref["packed"][ref["rows"][name]], w, h)[0]
+        assert abs(_psnr(dec, img) - want_db) < 1e-5, name
 
 
 @pytest.mark.slow
 def test_rebuild_fixture_unchanged(tmp_path):
     write_fixtures(str(tmp_path))
-    for name in IMAGES:
+    for name in list(IMAGES) + ["scb"]:
         got, want = np.load(fixture_path(name, str(tmp_path))), np.load(
             fixture_path(name))
         assert sorted(got.files) == sorted(want.files)

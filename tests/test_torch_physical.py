@@ -82,10 +82,10 @@ def test_pack_roundtrip_decode(stage1):
 
 def test_pack_full_path_bit_exact():
     """Symbolic blocks of JAX's full 6x6 -medium encode (2-plane blocks,
-    2 and 3 partitions, matched formats), shared with test_torch_main."""
-    from test_torch_main import config, jax_reference
-    ref = jax_reference()
-    s = ref["scb"]
+    2 and 3 partitions, matched formats): test_torch_main's committed
+    fixture, which a tier-1 test there holds to the live JAX encode."""
+    from test_torch_main import config, load_scb_fixture
+    s, packed = load_scb_fixture()
     real = ~s["const_u16"]
     assert (s["plane2_component"][real] >= 0).any()
     assert (s["partition_count"][real] == 2).any()
@@ -95,4 +95,4 @@ def test_pack_full_path_bit_exact():
     got = tphys.symbolic_to_physical_batch(
         tctx.torch_decode_tables(),
         {k: torch.from_numpy(v) for k, v in s.items()}).numpy()
-    np.testing.assert_array_equal(got, ref["packed"])
+    np.testing.assert_array_equal(got, packed)

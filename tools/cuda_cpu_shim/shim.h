@@ -2,7 +2,9 @@
 // kernels of astcenc_torch/csrc compile with g++ and run on a CPU (see
 // rehearse.py): one std::thread per CUDA thread, a CTA at a time;
 // std::barrier for __syncthreads and __syncwarp; shuffles, votes and
-// ballots through an exchange array; dynamic shared memory filled with
+// ballots through an exchange array (a __syncwarp waits for all 32 lanes,
+// whatever its mask: the halves of a warp that vote or sync apart must do
+// so in step); dynamic shared memory filled with
 // garbage before each CTA, as on a card. Float arithmetic is the host's
 // (built with -ffp-contract=off, like nvcc's --fmad=false), but libm is
 // glibc's: atan2f and the like may differ from CUDA's in the last bit.
@@ -59,19 +61,21 @@ template <class T> inline T __shfl_sync(unsigned, T v, int src) {
   uint32_t r = g_cta->xch[(threadIdx.x & ~31u) | ((unsigned)src & 31u)]; __syncwarp();
   T out; std::memcpy(&out, &r, 4); return out;
 }
-inline int __any_sync(unsigned, int p) {
+// Votes read the lanes their mask names (a half-warp's vote sees its own
+// half); every lane of the warp still takes part in the exchange.
+inline int __any_sync(unsigned m, int p) {
   g_cta->xch[threadIdx.x] = p ? 1 : 0; __syncwarp();
-  int any = 0; for (unsigned l = 0; l < 32; ++l) any |= g_cta->xch[(threadIdx.x & ~31u) | l];
+  int any = 0; for (unsigned l = 0; l < 32; ++l) if ((m >> l) & 1u) any |= g_cta->xch[(threadIdx.x & ~31u) | l];
   __syncwarp(); return any;
 }
-inline int __all_sync(unsigned, int p) {
+inline int __all_sync(unsigned m, int p) {
   g_cta->xch[threadIdx.x] = p ? 1 : 0; __syncwarp();
-  int all = 1; for (unsigned l = 0; l < 32; ++l) all &= g_cta->xch[(threadIdx.x & ~31u) | l];
+  int all = 1; for (unsigned l = 0; l < 32; ++l) if ((m >> l) & 1u) all &= g_cta->xch[(threadIdx.x & ~31u) | l];
   __syncwarp(); return all;
 }
-inline unsigned __ballot_sync(unsigned, int p) {
+inline unsigned __ballot_sync(unsigned m, int p) {
   g_cta->xch[threadIdx.x] = p ? 1 : 0; __syncwarp();
-  unsigned b = 0; for (unsigned l = 0; l < 32; ++l) b |= g_cta->xch[(threadIdx.x & ~31u) | l] << l;
+  unsigned b = 0; for (unsigned l = 0; l < 32; ++l) if ((m >> l) & 1u) b |= g_cta->xch[(threadIdx.x & ~31u) | l] << l;
   __syncwarp(); return b;
 }
 template <class T> inline T atomicAdd(T* p, T v) { T o = *p; *p += v; return o; }
