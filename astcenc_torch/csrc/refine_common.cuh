@@ -535,13 +535,16 @@ __device__ __forceinline__ float infill_i(const Stencil& s, const int* wg,
 // Trial error of a block against its decode: decoded endpoints e0t/e1t of
 // texel t at [t * ES + c] (ES = 4: one per texel, (T, 4); ES = 0: the same
 // four for every texel); channel p2c (or none, -1) takes plane 2's weights.
-template <int ES = 4>
+// G lanes run it: a warp, or a half-warp whose lane l takes the texels
+// lanes l and l + 16 of a warp would and adds their two sums as a warp's
+// butterfly does first, so that the result is the warp's bit for bit (the
+// other half-warp runs its own block beside it).
+template <int ES = 4, int G = 32>
 __device__ float trial_error(int lane, int T, const float* tex,
                              const float* e0t, const float* e1t,
                              const Stencil& s, const int* wg1, const int* wg2,
                              int p2c, const float* cw, bool u8_mask) {
-  float e = 0.f;
-  for (int t = lane; t < T; t += 32) {
+  auto texel = [&](int t) {
     const float w1 = infill_i(s, wg1, t);
     const float w2 = p2c >= 0 ? infill_i(s, wg2, t) : w1;
     float et = 0.f;
@@ -554,9 +557,17 @@ __device__ float trial_error(int lane, int T, const float* tex,
       const float dd = fminf(fabsf(tex[t * 4 + c] - color), 1e15f);
       et += (dd * dd) * cw[c];
     }
-    e += fminf(et, kBig);
-  }
-  return warp_sum(e);
+    return fminf(et, kBig);
+  };
+  float e = 0.f;
+  for (int t = lane; t < T; t += 32) e += texel(t);
+  if (G == 32) return warp_sum(e);
+  float e16 = 0.f;
+  for (int t = lane + 16; t < T; t += 32) e16 += texel(t);
+  e += e16;
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) e += __shfl_xor_sync(kFull, e, o);
+  return e;
 }
 
 constexpr int kMaxClasses = 8;   // parity classes of a weight grid

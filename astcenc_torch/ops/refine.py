@@ -6,10 +6,11 @@ K5 replaces ``refine_pallas.py::_refine_kernel`` (:184, launched by
 ``_refine_call`` :1368/:1381 from ``refine_round_1plane``); K6 and K7
 replace ``_refine2_kernel`` (:1090) and ``_refine2_boot_kernel`` (:1244),
 launched by ``_refine2_call`` (:1275/:1289) from ``refine_round_2plane``.
-They keep K2's and K3's shape (``csrc/refine_round.cu``,
-``csrc/refine_round2.cu``) and share their trial error and realign step
-(``csrc/refine_common.cuh``); the refit and the HDR pack run between the
-rounds in PyTorch (``codec/trial.py``).
+K6 keeps K3's layout (``csrc/refine_round2.cu``: a texel row per CTA,
+the two planes realigned at once on half-warps); K5 runs one candidate
+per half-warp (``csrc/refine_round.cu``). Both share K2's and K3's trial
+error and realign step (``csrc/refine_common.cuh``); the refit and the
+HDR pack run between the rounds in PyTorch (``codec/trial.py``).
 
 K2 replaces the TPU kernel
 ``astcenc_tpu/ops/refine_pallas.py::_trial1_full_kernel`` (:348, launched

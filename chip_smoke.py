@@ -38,9 +38,8 @@ non-zero and never prints the last line:
    partition, the first matched-format pack at 2 or more partitions and
    the first 2-plane pack), add K9 on the seeded pack batch with its
    corner cases (testdata.pack_batch) at profiles 0 and 3, and hold each
-   against its plain version (K5, K6: grids identical on 99.9% of the
-   lanes, errors within 3e-4; K7 within 1e-6; K9 bit-exact), with the
-   plain pack's quantizer lookups per call;
+   against its plain version (K5, K6 and K9 bit-exact; K7 within 1e-6),
+   with the plain pack's quantizer lookups per call;
 8. HDR path: a 2048x2048 synthetic float16 HDR texture (right half with an
    alpha of its own) through api.compress_image at 6x6 -medium -ch (phase
    7's encode was the warm-up); a second encode must be identical and is
@@ -54,8 +53,7 @@ non-zero and never prints the last line:
     300) table holding NaN payloads, +-Inf, -0.0 and denormals with 200
     indices per row, some out of range, with int32 and with int64 indices;
     hold K8 against its plain version bit for bit and time both and
-    torch.gather, with the profiler's device time per call of K8 and of
-    torch.gather and the host time of each step of K8's wrapper;
+    torch.gather, with the host time of each step of K8's wrapper;
 11. LDR refine-off path: the main-path texture with
     ASTC_DISABLE_KERNELS=refine (the plain refinement, its realign lookups
     on K8 and its packs on K9): encode rate, PSNR, share of blocks
@@ -87,7 +85,7 @@ The fused main paths (phases 5 and 8) must launch K8 no time, as on the
 TPU. The lines before the last are the kernel table as JSON (K1-K4
 launches counted on the LDR main path, K5-K7 and K9 on the HDR path, K8
 on the LDR refine-off path; "redesigned" marks the kernels whose first
-port was redesigned for the card: K1, K2, K3, K4, K8, K9), before it the
+port was redesigned for the card: K1-K6, K8, K9), before it the
 texel-sum kernel's line ("port_kernels", the same keys, launches counted
 on the LDR main path; it replaces no TPU kernel) and the nvidia-smi line;
 the last line is
@@ -106,6 +104,15 @@ of one PyTorch call computing a kernel's function on the same inputs, where
 one exists: ``torch.gather`` for K8 (the clamp and the int64 conversion of
 its indices made before the timed call); null for the others, K9 included
 (no single PyTorch call computes a colour pack).
+
+A kernel's ``ms`` and ``library_ms`` are device time per call over 10
+calls (20 for the texel sums), by CUDA events around calls queued behind
+a sleep kernel (``_device_ms``): the kernels, copies and fills one call
+launches, the host's time between them left out. ``event_ms`` is the
+kernel wrapper's time per call over back-to-back calls by CUDA events,
+which holds the wrapper's host time where that exceeds the kernel's.
+``plain_ms`` is the plain version's time per call by CUDA events, its
+host time included.
 """
 
 from __future__ import annotations
@@ -149,6 +156,35 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of fn over reps calls: CUDA events
+    around the calls, queued behind a sleep kernel so that the host has
+    queued them all before the device reaches the first. The events then
+    see the device's time alone (the kernels, copies and fills one call
+    launches, and the device's gaps between them), not the host's time
+    between launches. If the device reached the first event before the
+    host had queued the last call, the sleep is made longer and the calls
+    are queued again."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 25                     # ~20 ms at the H100's clock
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise RuntimeError(f"the host could not queue {reps} calls ahead of "
+                       f"the device")
 
 
 def _host_us(fn, n: int = 2000) -> float:
@@ -506,7 +542,8 @@ def _ops_round(T, planes, lanes, alive, ncolors):
 def _check_round(tag, got, want, grids):
     """K5/K6 against the plain version: grids identical on >= 99.9% of the
     lanes, errors within 3e-4 relative on live lanes, infills within 1e-6
-    relative where the grids agree."""
+    relative where the grids agree; and every output bit for bit (their
+    sums run in the plain version's order)."""
     same = torch.ones_like(want["err_pre"], dtype=torch.bool)
     for g in grids:
         same &= (got[g] == want[g]).all(1)
@@ -528,8 +565,12 @@ def _check_round(tag, got, want, grids):
     assert bool((got["adjusted"][same] == want["adjusted"][same]).all())
     mae = max(float((got[k] - want[k]).abs()[same].max())
               if same.any() else 0.0 for k in ("err_pre", "err_post"))
+    diff = sum(int((got[k].view(torch.int32) != w.view(torch.int32)).sum())
+               if w.dtype == torch.float32 else int((got[k] != w).sum())
+               for k, w in want.items())
+    assert diff == 0, f"{tag}: {diff} output values differ"
     return {"identical_grids": frac, "err_rel_max": worst,
-            "infill_rel_max": urel}, mae
+            "infill_rel_max": urel, "values_differing": diff}, mae
 
 
 def _hdr_kinds(decompress, ctx, blocks):
@@ -739,26 +780,33 @@ def main() -> int:
     assert set(sums_seen) == set(ts._ORDERS), sorted(sums_seen)
     missing = want_forms - set(seen)
     assert not missing, f"forms not captured: {sorted(missing)}"
-    stats = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0.0,
-                 "max_abs_err": 0.0, "library_ms": None}
+    stats = {k: {"ms": 0.0, "event_ms": 0.0, "plain_ms": 0.0, "bytes": 0,
+                 "ops": 0.0, "max_abs_err": 0.0, "library_ms": None}
              for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9")}
 
-    def account(kern, form, ms, plain_ms, nbytes, ops, mae, detail,
-                library_ms=None):
+    def account(kern, form, fn, plain_ms, nbytes, ops, mae, detail,
+                library_fn=None):
+        """Times fn, the kernel's wrapper on this form's inputs, and the
+        library call library_fn: device time per call (``_device_ms``),
+        and the wrapper's time per call by CUDA events (host included)."""
+        ms, event_ms = _device_ms(fn, 10), _time_ms(fn, 10)
         s = stats[kern]
         s["ms"] += ms
+        s["event_ms"] += event_ms
         s["plain_ms"] += plain_ms
         s["bytes"] += nbytes
         s["ops"] += ops
         s["max_abs_err"] = max(s["max_abs_err"], mae)
         lib = ""
-        if library_ms is not None:
+        if library_fn is not None:
+            library_ms = _device_ms(library_fn, 10)
             s["library_ms"] = (s["library_ms"] or 0.0) + library_ms
-            lib = f", library {library_ms:.3f} ms"
+            lib = f", library {library_ms:.4f} ms device"
         bms, by = _bound(nbytes, ops)
         print(f"kernels: {kern} {form}: {json.dumps(detail)}; kernel "
-              f"{ms:.3f} ms, plain {plain_ms:.3f} ms{lib}, bound {bms:.4f} "
-              f"ms ({by})", flush=True)
+              f"{ms:.4f} ms device ({event_ms:.4f} ms a call by events), "
+              f"plain {plain_ms:.3f} ms{lib}, bound {bms:.4f} ms ({by})",
+              flush=True)
 
     for form in ("pc1", "two", "pc2", "pc3"):
         a, kw = seen[("K1", form)]
@@ -774,8 +822,7 @@ def main() -> int:
                   + _nbytes(*got.values()))
         detail = {"blocks": a[1].shape[0], "candidates": a[7],
                   "modes": int(k.modes.shape[0]), **detail}
-        account("K1", form,
-                _time_ms(lambda: msearch.mode_search_cuda(*a, **kw), 5),
+        account("K1", form, lambda: msearch.mode_search_cuda(*a, **kw),
                 _time_ms(lambda: msearch.mode_search_plain(*a, **kw), 2),
                 nbytes, _ops_k1(pt, a, kw), mae, detail)
 
@@ -794,8 +841,7 @@ def main() -> int:
                           k.dm_color, k.pn, k.lohi)
                   + _nbytes(*got.values()))
         detail = {"lanes": N * C, "rounds": a[13], **detail}
-        account("K2", form,
-                _time_ms(lambda: refine.trial1_refine_cuda(*a), 5),
+        account("K2", form, lambda: refine.trial1_refine_cuda(*a),
                 _time_ms(lambda: refine.trial1_refine_plain(*a), 2),
                 nbytes, _ops_refine(texels.shape[1], pt.pc, 1,
                                     want["err_pre"], want["err_post"]),
@@ -813,7 +859,7 @@ def main() -> int:
     k = pt.k
     nbytes = (_nbytes(*a[1:13], k.tap_w, k.tap_i, k.wt_t, k.wt_i, k.wt_n,
                       k.dm_color, k.pn, k.lohi) + _nbytes(*got.values()))
-    account("K3", "two", _time_ms(lambda: refine.trial2_refine_cuda(*a), 5),
+    account("K3", "two", lambda: refine.trial2_refine_cuda(*a),
             _time_ms(lambda: refine.trial2_refine_plain(*a), 2), nbytes,
             _ops_refine(a[9].shape[1], 1, 2, want["err_pre"],
                         want["err_post"]),
@@ -852,7 +898,7 @@ def main() -> int:
         # The kernel reads each candidate's table row, not the whole table.
         nbytes = (_nbytes(a[0], a[1], a[2], uk, sk)
                   + a[2].numel() * a[3].shape[1] * a[3].element_size())
-        account("K4", form, _time_ms(lambda: psearch.line_errors_cuda(*a), 5),
+        account("K4", form, lambda: psearch.line_errors_cuda(*a),
                 _time_ms(lambda: psearch.line_errors_plain(*a), 2), nbytes,
                 _ops_k4(a), mae,
                 {"blocks": a[0].shape[0], "candidates": a[2].shape[1],
@@ -863,8 +909,8 @@ def main() -> int:
     # The texel-sum kernel in each order, on the largest call of the capture
     # encode, bit for bit against its plain version on the card; the
     # library time is the PyTorch call the order reproduces on the CPU.
-    ts_stats = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0.0,
-                "library_ms": 0.0}
+    ts_stats = {"ms": 0.0, "event_ms": 0.0, "plain_ms": 0.0, "bytes": 0,
+                "ops": 0.0, "library_ms": 0.0}
     def library(a, b):
         return torch.einsum("ntp,ntc->npc", a, b)
 
@@ -878,18 +924,21 @@ def main() -> int:
         Cn = y.shape[2]
         nbytes = (_unique_bytes(x) + _unique_bytes(y)
                   + got.numel() * got.element_size())
-        ms = _time_ms(lambda: ts.texel_sum_cuda(x, y, order), 20)
+        ms = _device_ms(lambda: ts.texel_sum_cuda(x, y, order), 20)
+        event_ms = _time_ms(lambda: ts.texel_sum_cuda(x, y, order), 20)
         plain_ms = _time_ms(lambda: ts.texel_sum_plain(x, y, order), 5)
-        lib_ms = _time_ms(lambda: library(x, y), 20)
+        lib_ms = _device_ms(lambda: library(x, y), 20)
         ops = 2.0 * N * P * Cn * T
-        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bytes", nbytes),
-                     ("ops", ops), ("library_ms", lib_ms)):
+        for k, v in (("ms", ms), ("event_ms", event_ms),
+                     ("plain_ms", plain_ms), ("bytes", nbytes), ("ops", ops),
+                     ("library_ms", lib_ms)):
             ts_stats[k] += v
         bms, by = _bound(nbytes, ops)
         print(f"kernels: texel_sum {order}: (N, T, P, C) = "
-              f"{(N, T, P, Cn)}, 0 values differ; kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.3f} ms, library {lib_ms:.4f} ms, bound "
-              f"{bms:.5f} ms ({by})", flush=True)
+              f"{(N, T, P, Cn)}, 0 values differ; kernel {ms:.4f} ms device "
+              f"({event_ms:.4f} ms a call by events), plain {plain_ms:.3f} "
+              f"ms, library {lib_ms:.4f} ms device, bound {bms:.5f} ms "
+              f"({by})", flush=True)
 
     # --- 4. stage 1 (the earlier slice's configuration) --------------------
     cfg1 = api.config_init(api.Profile.LDR, 6, 6, 1, api.Quality.MEDIUM, 0)
@@ -992,8 +1041,7 @@ def main() -> int:
         nbytes = (_nbytes(*a[1:9], k.tap_w, k.tap_i, k.wt_t, k.wt_i, k.wt_n,
                           k.dm_color, k.pn) + _nbytes(*got.values()))
         lanes = a[1].shape[0]
-        account("K5", form, _time_ms(lambda: refine.refine_round_1plane_cuda(
-                    *a), 5),
+        account("K5", form, lambda: refine.refine_round_1plane_cuda(*a),
                 _time_ms(lambda: refine.refine_round_1plane_plain(*a), 2),
                 nbytes, _ops_round(a[7].shape[1], 1, lanes,
                                    int(a[4].sum()), ncolors), mae,
@@ -1006,8 +1054,7 @@ def main() -> int:
     detail, mae = _check_round("K6", got, want, ("grid1", "grid2"))
     k = a[0].k
     lanes = a[1].shape[0]
-    account("K6", "two", _time_ms(lambda: refine.refine_round_2plane_cuda(
-                *a), 5),
+    account("K6", "two", lambda: refine.refine_round_2plane_cuda(*a),
             _time_ms(lambda: refine.refine_round_2plane_plain(*a), 2),
             _nbytes(*a[1:10], k.tap_w, k.tap_i, k.wt_t, k.wt_i, k.wt_n,
                     k.dm_color, k.pn) + _nbytes(*got.values()),
@@ -1024,8 +1071,7 @@ def main() -> int:
     assert urel <= 1e-6, f"K7 infill rel {urel}"
     k = a[0].k
     lanes, T = a[1].shape[0], a[9].shape[1]
-    account("K7", "two", _time_ms(lambda: refine.refine_round_2plane_cuda(
-                *a), 5),
+    account("K7", "two", lambda: refine.refine_round_2plane_cuda(*a),
             _time_ms(lambda: refine.refine_round_2plane_plain(*a), 2),
             _nbytes(a[1], a[2], a[3], k.tap_w, k.tap_i)
             + _nbytes(*got.values()), lanes * 16 * T,
@@ -1060,7 +1106,7 @@ def main() -> int:
         rows_k = a[0].shape[0]
         nbytes = (_nbytes(*a[:3], a[4], a[5], *got) + 2 * 17 * 256 * 4
                   + (_nbytes(a[3]) if prof_k >= 2 else 0))
-        account("K9", form, _time_ms(lambda: cp.pack_cuda(prof_k, *a), 20),
+        account("K9", form, lambda: cp.pack_cuda(prof_k, *a),
                 _time_ms(lambda: cph.pack_color_endpoints_plain(prof_k, *a),
                          2),
                 nbytes, _ops_pack(prof_k, a[4]), 0.0,
@@ -1178,24 +1224,12 @@ def main() -> int:
         assert same, f"K8 {form} differs"
         lib = torch.gather(rows, 1, ie)
         assert bool((lib.view(torch.int32) == want.view(torch.int32)).all())
-        # Device time alone (profiler), against the events' time per call,
-        # which also holds the host's time between launches.
-        dev_us = {k: _profile(lambda: [fn() for _ in range(20)])[
-            "device_busy_ms"] / 20 * 1e3 for k, fn in (
-                ("kernel", lambda: gather.row_lookup_cuda(rows, idx)),
-                ("library", lambda: torch.gather(rows, 1, ie)))}
-        print(f"{at()} K8 profile {form} ({idx.dtype} indices): device us per "
-              f"call: K8 {dev_us['kernel']:.3f}, torch.gather "
-              f"{dev_us['library']:.3f}", flush=True)
-        account("K8", form, _time_ms(lambda: gather.row_lookup_cuda(rows, idx),
-                                     20),
+        account("K8", form, lambda: gather.row_lookup_cuda(rows, idx),
                 _time_ms(lambda: gather.row_lookup_plain(rows, idx), 20),
                 _nbytes(rows, idx, got), 2.0 * B * K, 0.0,
                 {"rows": B, "entries": V, "indices": K, "words": C,
-                 "dtype": str(rows.dtype), "bit_exact": True,
-                 "device_us_per_call": dev_us},
-                library_ms=_time_ms(lambda: torch.gather(rows, 1, ie),
-                                    20))
+                 "dtype": str(rows.dtype), "bit_exact": True},
+                library_fn=lambda: torch.gather(rows, 1, ie))
 
     # Host time of each step of K8's wrapper, on the realign form: the
     # allocation (as the wrapper makes it, and as torch.empty would), the
@@ -1352,7 +1386,7 @@ def main() -> int:
                    "astcenc_tpu/ops/gather_pallas.py:120"),
             "K9": ("color_pack", "astcenc_torch/csrc/color_pack.cu",
                    "astcenc_tpu/ops/gather_pallas.py:170")}
-    redesigned = ("K1", "K2", "K3", "K4", "K8", "K9")
+    redesigned = ("K1", "K2", "K3", "K4", "K5", "K6", "K8", "K9")
     kernels = []
     for kern, (name, src, rep) in meta.items():
         s = stats[kern]
@@ -1365,6 +1399,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": n[name],
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+                        "event_ms": s["event_ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": bms,
                         "bound_by": by, "library_ms": s["library_ms"],
                         "redesigned": kern in redesigned})
@@ -1374,7 +1409,8 @@ def main() -> int:
         "name": "texel_sum", "route": "cuda",
         "source": "astcenc_torch/csrc/texel_sum.cu", "replaces": None,
         "launches": launches["texel_sum"], "max_abs_err": 0.0,
-        "ms": ts_stats["ms"], "plain_ms": ts_stats["plain_ms"],
+        "ms": ts_stats["ms"], "event_ms": ts_stats["event_ms"],
+        "plain_ms": ts_stats["plain_ms"],
         "bound_ms": bms, "bound_by": by,
         "library_ms": ts_stats["library_ms"]}]}))
     print(json.dumps({"kernels": kernels}))

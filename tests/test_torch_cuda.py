@@ -640,6 +640,97 @@ def test_refine2_kernel_footprints(cuda_device, bx, quality):
         assert diff == 0, k
 
 
+def _hdr_footprint_inputs(dev, bx, quality, kind, pc, n_blocks, seed):
+    """The arguments the plain HDR -ch trial front end hands K5 (1 plane,
+    keyed by ncolors > 0: its bootstrap and its first round) or K6 (two
+    planes, its first round) for a seeded synthetic float16 image at a bx x
+    bx footprint and a preset; for pc >= 2 on seeded partitionings of the
+    partition table."""
+    from astcenc_torch.ops import refine
+    ctx = api.context_alloc(api.config_init(
+        api.Profile.HDR_RGB_LDR_A, bx, bx, 1, getattr(api.Quality, quality),
+        0), device=dev)
+    img = testdata.synthetic_hdr_image(bx * 8, bx * (-(-n_blocks // 8)),
+                                       seed, independent_alpha=True)
+    tex = torch.from_numpy(tc.image_to_blocks(ctx, img)[:n_blocks]).to(dev)
+    profile = int(ctx.config.profile)
+    st = tc.make_block_state(tex, profile)
+    N = tex.shape[0]
+    ql = torch.full((N,), 11, dtype=torch.int32, device=dev)
+    if kind == "two":
+        ext = torch.ones((N, 4), dtype=torch.bool, device=dev)
+        return _first_calls(
+            refine, "refine_round_2plane",
+            lambda: trial.trial2_records(st, ctx.pass_tables("two"),
+                                         ctx.config, profile, False, ql, ext,
+                                         use_kernels=False),
+            lambda a: a[11] > 0)
+    ext = torch.ones(N, dtype=torch.bool, device=dev)
+    kw = {}
+    if pc > 1:
+        tabs = ctx.partition_tables(pc)
+        rows = torch.from_numpy(np.random.RandomState(seed).randint(
+            0, tabs.count_selected, N)).to(dev)
+        kw = {"pot": tabs.pot[rows], "counts": tabs.counts[rows]}
+    return _first_calls(
+        refine, "refine_round_1plane",
+        lambda: trial.trial1_records(st, ctx.pass_tables("full", pc),
+                                     ctx.config, profile, False, ql, ext,
+                                     use_kernels=False, **kw),
+        lambda a: a[10] > 0)
+
+
+def _round_differing(tag, got, want):
+    """How many output values of a K5/K6 call differ from the plain
+    version's, bit for bit (printed)."""
+    diff = sum(int((_bits(got[k]) != _bits(w)).sum())
+               for k, w in want.items())
+    total = sum(w.numel() for w in want.values())
+    print(f"{tag}: {diff} of {total} values differ from the plain version")
+    return diff
+
+
+@pytest.mark.parametrize("bx,quality,pc", [
+    (8, "THOROUGH", 1), (8, "THOROUGH", 2), (8, "THOROUGH", 3),
+    (12, "EXHAUSTIVE", 1), (12, "EXHAUSTIVE", 2), (12, "EXHAUSTIVE", 3),
+    (12, "EXHAUSTIVE", 4)])
+def test_refine_round_kernel_footprints(cuda_device, bx, quality, pc):
+    """K5, its bootstrap and a round, against its plain version at 8x8
+    -thorough (C = 4) and 12x12 -exhaustive (C = 8, W = 64, T = 144), pc
+    1-4, on the inputs the plain HDR -ch front end gives it: every output
+    bit for bit (K5's sums run in its plain version's order)."""
+    from astcenc_torch.ops import refine
+    n = {8: 128, 12: 48}[bx]
+    seen = _hdr_footprint_inputs(cuda_device, bx, quality, "full", pc, n,
+                                 bx + 10 * pc)
+    for realign in (False, True):
+        a = seen[realign]
+        got = refine.refine_round_1plane_cuda(*a)
+        want = refine.refine_round_1plane_plain(*a)
+        tag = (f"K5 {bx}x{bx} pc{pc} C{a[9]} "
+               f"{'round' if realign else 'bootstrap'}")
+        _check_round(got, want, ("grid",))
+        assert _round_differing(tag, got, want) == 0, tag
+
+
+@pytest.mark.parametrize("bx,quality", [(8, "THOROUGH"),
+                                        (12, "EXHAUSTIVE")])
+def test_refine_round2_kernel_footprints(cuda_device, bx, quality):
+    """K6 against its plain version at 8x8 -thorough (C = 4: a texel row's
+    16 warps in one CTA) and 12x12 -exhaustive two planes (C = 8: a row's
+    components over two CTAs), on the inputs the plain HDR -ch front end
+    gives it: every output bit for bit."""
+    from astcenc_torch.ops import refine
+    n = {8: 64, 12: 32}[bx]
+    a = _hdr_footprint_inputs(cuda_device, bx, quality, "two", 1, n,
+                              bx + 40)[True]
+    assert a[10] == {8: 4, 12: 8}[bx], a[10]
+    got = refine.refine_round_2plane_cuda(*a)
+    want = refine.refine_round_2plane_plain(*a)
+    _check_round(got, want, ("grid1", "grid2"))
+    assert _round_differing(f"K6 {bx}x{bx} C{a[10]}", got, want) == 0
+
+
 def _psearch_inputs(dev, bx, P, n_blocks, seed):
     """The arguments the partition search hands K4 (the line errors) for a
     seeded synthetic image at a bx x bx footprint, -thorough (S up to 82),

@@ -2,9 +2,9 @@
 // kernels of astcenc_torch/csrc compile with g++ and run on a CPU (see
 // rehearse.py): one std::thread per CUDA thread, a CTA at a time;
 // std::barrier for __syncthreads and __syncwarp; shuffles, votes and
-// ballots through an exchange array (a __syncwarp waits for all 32 lanes,
-// whatever its mask: the halves of a warp that vote or sync apart must do
-// so in step); dynamic shared memory filled with
+// ballots through an exchange array (a __syncwarp, shuffle or vote waits
+// for the lanes of its half-warp where its mask names one half, else for
+// all 32 lanes); dynamic shared memory filled with
 // garbage before each CTA, as on a card. Float arithmetic is the host's
 // (built with -ffp-contract=off, like nvcc's --fmad=false), but libm is
 // glibc's: atan2f and the like may differ from CUDA's in the last bit.
@@ -44,39 +44,44 @@ inline long long clock64() { return 0; }
 struct ShimCTA {
   std::unique_ptr<std::barrier<>> cta;
   std::vector<std::unique_ptr<std::barrier<>>> warp;
+  std::vector<std::unique_ptr<std::barrier<>>> half;  // two a warp
   uint32_t xch[1024];
 };
 inline ShimCTA* g_cta;
 inline void __syncthreads() { g_cta->cta->arrive_and_wait(); }
-inline void __syncwarp(unsigned = 0xffffffffu) { g_cta->warp[threadIdx.x / 32]->arrive_and_wait(); }
-template <class T> inline T __shfl_xor_sync(unsigned, T v, int o) {
+inline void __syncwarp(unsigned m = 0xffffffffu) {
+  const unsigned w = threadIdx.x / 32;
+  if (m == 0x0000FFFFu || m == 0xFFFF0000u) g_cta->half[2 * w + (m >> 16 ? 1 : 0)]->arrive_and_wait();
+  else g_cta->warp[w]->arrive_and_wait();
+}
+template <class T> inline T __shfl_xor_sync(unsigned m, T v, int o) {
   uint32_t u; std::memcpy(&u, &v, 4);
-  g_cta->xch[threadIdx.x] = u; __syncwarp();
-  uint32_t r = g_cta->xch[(threadIdx.x & ~31u) | ((threadIdx.x & 31u) ^ (unsigned)o)]; __syncwarp();
+  g_cta->xch[threadIdx.x] = u; __syncwarp(m);
+  uint32_t r = g_cta->xch[(threadIdx.x & ~31u) | ((threadIdx.x & 31u) ^ (unsigned)o)]; __syncwarp(m);
   T out; std::memcpy(&out, &r, 4); return out;
 }
-template <class T> inline T __shfl_sync(unsigned, T v, int src) {
+template <class T> inline T __shfl_sync(unsigned m, T v, int src) {
   uint32_t u; std::memcpy(&u, &v, 4);
-  g_cta->xch[threadIdx.x] = u; __syncwarp();
-  uint32_t r = g_cta->xch[(threadIdx.x & ~31u) | ((unsigned)src & 31u)]; __syncwarp();
+  g_cta->xch[threadIdx.x] = u; __syncwarp(m);
+  uint32_t r = g_cta->xch[(threadIdx.x & ~31u) | ((unsigned)src & 31u)]; __syncwarp(m);
   T out; std::memcpy(&out, &r, 4); return out;
 }
 // Votes read the lanes their mask names (a half-warp's vote sees its own
-// half); every lane of the warp still takes part in the exchange.
+// half).
 inline int __any_sync(unsigned m, int p) {
-  g_cta->xch[threadIdx.x] = p ? 1 : 0; __syncwarp();
+  g_cta->xch[threadIdx.x] = p ? 1 : 0; __syncwarp(m);
   int any = 0; for (unsigned l = 0; l < 32; ++l) if ((m >> l) & 1u) any |= g_cta->xch[(threadIdx.x & ~31u) | l];
-  __syncwarp(); return any;
+  __syncwarp(m); return any;
 }
 inline int __all_sync(unsigned m, int p) {
-  g_cta->xch[threadIdx.x] = p ? 1 : 0; __syncwarp();
+  g_cta->xch[threadIdx.x] = p ? 1 : 0; __syncwarp(m);
   int all = 1; for (unsigned l = 0; l < 32; ++l) if ((m >> l) & 1u) all &= g_cta->xch[(threadIdx.x & ~31u) | l];
-  __syncwarp(); return all;
+  __syncwarp(m); return all;
 }
 inline unsigned __ballot_sync(unsigned m, int p) {
-  g_cta->xch[threadIdx.x] = p ? 1 : 0; __syncwarp();
+  g_cta->xch[threadIdx.x] = p ? 1 : 0; __syncwarp(m);
   unsigned b = 0; for (unsigned l = 0; l < 32; ++l) if ((m >> l) & 1u) b |= g_cta->xch[(threadIdx.x & ~31u) | l] << l;
-  __syncwarp(); return b;
+  __syncwarp(m); return b;
 }
 template <class T> inline T atomicAdd(T* p, T v) { T o = *p; *p += v; return o; }
 typedef void* cudaStream_t;
@@ -98,7 +103,10 @@ inline void shim_launch(K kernel, unsigned grid, unsigned block, size_t smem, A.
   for (unsigned b = 0; b < grid; ++b) {
     ShimCTA st;
     st.cta = std::make_unique<std::barrier<>>(block);
-    for (unsigned w = 0; w < (block + 31) / 32; ++w) st.warp.push_back(std::make_unique<std::barrier<>>(32));
+    for (unsigned w = 0; w < (block + 31) / 32; ++w) {
+      st.warp.push_back(std::make_unique<std::barrier<>>(32));
+      for (int h = 0; h < 2; ++h) st.half.push_back(std::make_unique<std::barrier<>>(16));
+    }
     std::memset(shim_smem, 0xAB, smem);  // garbage, as on a card
     g_cta = &st;
     std::vector<std::thread> ts;

@@ -1,6 +1,7 @@
 """Blocks of two checkouts of astcenc_torch compared on one CUDA card.
 
     python3 tools/torch_compare_trees.py OLD_TREE [--size 2048] [--out DIR]
+        [--profile]
 
 Encodes ``chip_smoke.py``'s main-path texture (a synthetic 2048x2048 RGBA8
 image, seed 0, the right half with an alpha of its own, 6x6 LDR -medium)
@@ -10,7 +11,11 @@ checkout OLD_TREE and once with this one, each in a process of its own
 number of blocks that differ, how the kinds of those blocks (partitions,
 planes) moved, and the decoded quality (PSNR, mPSNR) of both encodes. The
 blocks are kept as ``.npy`` files in ``--out`` (default
-``chiprun_out/compare_trees``).
+``chiprun_out/compare_trees``). With ``--profile`` each process then
+encodes the HDR texture four times more, three timed (the kernels'
+launches counted in each) and one under ``chip_smoke._profile`` of its own
+tree (the whole texture: device time by kernel, device operations, idle
+share), and prints the times, launches and profile as a JSON line.
 """
 
 from __future__ import annotations
@@ -24,8 +29,8 @@ import sys
 _HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _ENCODE = r'''
-import sys, numpy as np, torch
-tree, size, out = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+import json, sys, time, numpy as np, torch
+tree, size, out, prof = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
 sys.path.insert(0, tree)
 from astcenc_torch import api, testdata
 ldr = api.config_init(api.Profile.LDR, 6, 6, 1, api.Quality.MEDIUM, 0)
@@ -36,9 +41,28 @@ for name, cfg, img in (
                                               independent_alpha=True)),
         ("ch", hdr, testdata.synthetic_hdr_image(size, size, 0,
                                                  independent_alpha=True))):
-    blocks = api.compress_image(api.context_alloc(cfg, device="cuda"), img)
+    ctx = api.context_alloc(cfg, device="cuda")
+    blocks = api.compress_image(ctx, img)
     torch.cuda.synchronize()
     np.save(f"{out}_{name}.npy", blocks)
+if prof == "1":
+    import chip_smoke
+    from astcenc_torch.ops import (color_pack, gather, msearch, psearch,
+                                   refine, texel_sum)
+    mods = (msearch, refine, psearch, gather, color_pack, texel_sum)
+    enc_s = []
+    for k in range(3):
+        chip_smoke._reset(*mods)
+        t0 = time.perf_counter()
+        api.compress_image(ctx, img)
+        torch.cuda.synchronize()
+        enc_s.append(time.perf_counter() - t0)
+    print(json.dumps({"tree": tree, "path": name, "size": size,
+                      "encode_s": enc_s,
+                      "launches": chip_smoke._counts(*mods),
+                      "profile": chip_smoke._profile(
+                          lambda: api.compress_image(ctx, img)),
+                      "card": chip_smoke._smi()}), flush=True)
 '''
 
 
@@ -60,6 +84,8 @@ def main() -> int:
     ap.add_argument("--size", type=int, default=2048)
     ap.add_argument("--out", default=os.path.join(_HERE, "chiprun_out",
                                                   "compare_trees"))
+    ap.add_argument("--profile", action="store_true",
+                    help="also time and profile each tree's HDR encode")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -70,7 +96,8 @@ def main() -> int:
     trees = {"old": os.path.abspath(args.old_tree), "new": _HERE}
     for tag, tree in trees.items():
         subprocess.run([sys.executable, "-c", _ENCODE, tree, str(args.size),
-                        os.path.join(args.out, tag)], check=True)
+                        os.path.join(args.out, tag),
+                        "1" if args.profile else "0"], check=True)
     sys.path.insert(0, _HERE)
     from astcenc_torch import api, testdata
     from astcenc_torch.codec import decompress
