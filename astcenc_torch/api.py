@@ -5,6 +5,9 @@
     blocks = compress_image(ctx, image)          # (N, 16) uint8
     texels = decompress_image(ctx, blocks, dim_x, dim_y)
 
+and the reference's helpers: compress_cancel, compress_reset,
+get_error_string and get_block_info.
+
 Port of ``astcenc_tpu/api.py``. The context carries the torch device; its
 derived tables (decode tables, encoder tables, the trial pass tables, the
 partition tables and their device copies) are shared by every context with
@@ -22,6 +25,7 @@ from .tables import bsd as _bsd
 from . import config as _config
 from .codec import decode_tables as _decode_tables
 from ._host import decode_tables_to_torch
+from .codec import block_info as _block_info
 from .codec import compress as compress_mod
 from .codec import decompress
 from .codec import partition_search
@@ -40,7 +44,8 @@ error_string = _config.error_string
 __all__ = [
     "Profile", "Quality", "Flags", "Swizzle", "ASTCConfig", "Error",
     "ConfigError", "config_init", "context_alloc", "compress_image",
-    "decompress_blocks", "decompress_image", "Context",
+    "decompress_blocks", "decompress_image", "Context", "compress_cancel",
+    "compress_reset", "get_error_string", "get_block_info",
 ]
 
 # Derived tables keyed by BSD identity (build_bsd is cached by its
@@ -59,11 +64,13 @@ def _derived(bsd) -> dict:
 @dataclasses.dataclass
 class Context:
     """Compression/decompression context: config, block size descriptor,
-    and the device its tensors live on."""
+    the device its tensors live on, and the cancel flag that
+    compress_cancel sets and compress_image clears at its start."""
 
     config: ASTCConfig
     bsd: object
     device: torch.device
+    cancel_requested: bool = False
 
     @property
     def block_dims(self):
@@ -145,6 +152,40 @@ def compress_image(ctx: Context, image: np.ndarray, swizzle=(0, 1, 2, 3),
     """Compress an image array to (N, 16) uint8 blocks, raster order."""
     return compress_mod.compress_image(ctx, image, swizzle,
                                        progress_callback=progress_callback)
+
+
+def compress_reset(ctx: Context) -> None:
+    """Re-arm a context between images (reference: astcenc_compress_reset,
+    astcenc_entry.cpp:1231-1248, which re-arms its work-stealing
+    scheduler). The chunked pipeline keeps no state between images and
+    compress_image clears the cancel flag itself, so there is nothing to
+    re-arm: this does nothing, as in the JAX package (``api.py:205``)."""
+
+
+def compress_cancel(ctx: Context) -> None:
+    """Ask an encode in flight on ``ctx`` to stop (reference:
+    astcenc_compress_cancel, astcenc_entry.cpp:1251-1271): compress_image
+    checks the flag before each chunk, and the blocks of the chunks it did
+    not start come back as zero bytes. Call it from the progress callback
+    or another thread."""
+    ctx.cancel_requested = True
+
+
+def get_error_string(status) -> str | None:
+    """The stable string of an error code (reference:
+    astcenc_get_error_string, astcenc_entry.cpp:1519-1558): takes an
+    Error, an int or a raised ConfigError (its ``.code``); None outside the
+    enum, as the reference returns nullptr."""
+    if isinstance(status, ConfigError):
+        status = status.code
+    return error_string(status)
+
+
+def get_block_info(ctx: Context, block) -> dict:
+    """The encoding metadata of one 16-byte physical block (reference:
+    astcenc_get_block_info, astcenc_entry.cpp:1401-1517), parsed on the
+    host: ``codec/block_info.py``."""
+    return _block_info.get_block_info(ctx, block)
 
 
 def decompress_blocks(ctx: Context, blocks, decode_unorm8: bool = False):

@@ -4,7 +4,9 @@ Port of ``astcenc_tpu/codec/compress.py``: make_block_state,
 _lowest_correlation, the split-stage compress_symbolic_batch (:268-287)
 with _stage1_1plane (:290-411), _stage2a_2plane (:432-494),
 _stage2b_multipart and _stage2b_one_pc (:497-619), _finalize_pack
-(:622-646), and compress_image (:1001-1123).
+(:622-646), and compress_image (:1001-1123): with its alpha-scale RDO
+(:1051-1059, :1081-1082; the mask ``_alpha_zero_blocks``, :1184-1215) and
+its cancel check before each chunk (:1086-1095).
 
 Every block of a chunk goes through stage 1 (the mode-0 pass and the full
 1-partition 1-plane pass). Each later stage runs only on the blocks it
@@ -81,14 +83,13 @@ def _lowest_correlation(texels, channel_weight):
 
 
 def check_supported(cfg) -> None:
-    """Refuse what the port does not do yet."""
+    """Refuse what the port does not do yet: RGBM, USE_ALPHA_WEIGHT and 3D
+    blocks."""
     for flag in (Flags.USE_ALPHA_WEIGHT, Flags.MAP_RGBM):
         if cfg.flags & flag:
             raise NotImplementedError(f"{flag.name} is not ported yet")
     if cfg.block_z > 1:
         raise NotImplementedError("3D block encoding is not ported yet")
-    if int(getattr(cfg, "a_scale_radius", 0)) != 0:
-        raise NotImplementedError("alpha-scale RDO is not ported yet")
 
 
 def _u8_mask(cfg) -> bool:
@@ -391,9 +392,53 @@ def _apply_load_swizzle(image, swizzle):
     return np.stack([chans[s] for s in swizzle], axis=-1)
 
 
+def _xla_cumsum(x: np.ndarray) -> np.ndarray:
+    """Inclusive float32 prefix sums of ``x`` along axis 0 in XLA:CPU's
+    order of ``jnp.cumsum``: runs of 16 (the last padded with zeros), each
+    summed in sequence, the run totals scanned the same way, and each run's
+    exclusive prefix of the totals added to it."""
+    n = x.shape[0]
+    if n <= 16:
+        return np.cumsum(x, axis=0, dtype=np.float32)
+    m = -(-n // 16)
+    runs = np.concatenate(
+        [x, np.zeros((m * 16 - n,) + x.shape[1:], np.float32)]
+    ).reshape((m, 16) + x.shape[1:])
+    inner = np.cumsum(runs, axis=1, dtype=np.float32)
+    totals = _xla_cumsum(inner[:, -1])
+    before = np.concatenate([np.zeros_like(totals[:1]), totals[:-1]])
+    return (inner + before[:, None]).reshape((m * 16,) + x.shape[1:])[:n]
+
+
+def _alpha_zero_blocks(alpha, bx, by, radius, nx, ny) -> np.ndarray:
+    """(ny * nx,) mask of the blocks whose footprint, grown by ``radius``,
+    holds ~zero alpha (compress.py:1184-1215; reference: the summed-area
+    table of astcenc_compute_variance.cpp:48-505 and the zero-block
+    substitution of astcenc_entry.cpp:974-1035). ``alpha`` is the (H, W)
+    UNORM16 alpha plane. Float32 on the host, summed in XLA:CPU's order
+    (``_xla_cumsum``) so that the mask is JAX's bit for bit: on a large
+    plane the table's rounding decides blocks near the threshold."""
+    a01 = np.asarray(alpha, np.float32) / np.float32(65535.0)
+    r = radius
+    ap = np.pad(a01, ((r, r + 1), (r, r + 1)), mode="edge")
+    sat = _xla_cumsum(_xla_cumsum(ap).T).T
+    sat = np.pad(sat, ((1, 0), (1, 0)))
+    H, W = a01.shape
+    k = 2 * r + 1
+    # Window sum of the (2r+1)^2 neighbourhood centred at each texel.
+    win = (((sat[k:k + H, k:k + W] - sat[k:k + H, :W]) - sat[:H, k:k + W])
+           + sat[:H, :W])
+    avg = win / np.float32(k * k)
+    xf = bx + 2 * (r - 1)
+    yf = by + 2 * (r - 1)
+    has_alpha = avg > np.float32(0.9 / (255.0 * float(xf * yf)))
+    hp = np.pad(has_alpha, ((0, ny * by - H), (0, nx * bx - W)))
+    return ~hp.reshape(ny, by, nx, bx).any(axis=(1, 3)).reshape(-1)
+
+
 def image_to_blocks(ctx, image, swizzle=(0, 1, 2, 3)) -> np.ndarray:
     """Host side of compress_image: channel fill, swizzle, UNORM16 scale,
-    blockify. Returns (N, T, 4) float32."""
+    alpha-scale RDO, blockify. Returns (N, T, 4) float32."""
     image = np.asarray(image)
     if image.ndim == 3:
         image = image[None]
@@ -417,7 +462,17 @@ def image_to_blocks(ctx, image, swizzle=(0, 1, 2, 3)) -> np.ndarray:
             data[..., 3] = _encode_unorm_sanitized(f[..., 3])
     else:
         data = _encode_unorm_sanitized(image.astype(np.float32))
-    return blockify(data.astype(np.float32), ctx.block_dims)
+    blocks = blockify(data.astype(np.float32), ctx.block_dims)
+    # Alpha-scale RDO, 2D only: blocks with ~zero alpha around them become
+    # transparent black before the encode (compress.py:1051-1059).
+    bx, by, bz = ctx.block_dims
+    Z, H, W = data.shape[:3]
+    radius = int(ctx.config.a_scale_radius)
+    if radius != 0 and bz == 1 and Z == 1:
+        zero = _alpha_zero_blocks(data[0, :, :, 3], bx, by, radius,
+                                  -(-W // bx), -(-H // by))
+        blocks[zero] = 0.0
+    return blocks
 
 
 def compress_image(ctx, image, swizzle=(0, 1, 2, 3), progress_callback=None,
@@ -427,14 +482,21 @@ def compress_image(ctx, image, swizzle=(0, 1, 2, 3), progress_callback=None,
     ``use_kernels=False`` runs the plain PyTorch versions of the kernels on
     any device (for comparison on the card); the public API never sets it.
     The kernel families that ``ASTC_DISABLE_KERNELS`` switches off are read
-    once per call (``gather.disabled_kernels``).
+    once per call (``gather.disabled_kernels``). The call clears the
+    context's cancel flag at its start and reads it before each chunk: once
+    it is set (``api.compress_cancel``), the blocks of the chunks not
+    started come back as zero bytes (compress.py:1086-1095).
     """
     check_supported(ctx.config)
+    ctx.cancel_requested = False
     disabled = gather.disabled_kernels()
     blocks = image_to_blocks(ctx, image, swizzle)
     n = blocks.shape[0]
     outs = []
     for lo in range(0, n, CHUNK):
+        if ctx.cancel_requested:
+            outs.append(torch.zeros((n - lo, 16), dtype=torch.uint8))
+            break
         tex = torch.from_numpy(blocks[lo:lo + CHUNK]).to(ctx.device)
         outs.append(compress_blocks(ctx, tex, use_kernels=use_kernels,
                                     disabled=disabled).cpu())

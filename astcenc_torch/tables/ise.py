@@ -8,9 +8,10 @@ packed bits interleaved with the plain bits in a fixed stream layout.
 Everything here is *generated* from the ASTC specification's trit/quint block
 decode functions; nothing is hand-copied table data (reference:
 Source/astcenc_integer_sequence.cpp:28-739). The port's copy of the JAX
-package's ``tables/ise.py`` without its host-side encoder and decoder, which
-the port does not call; tests/test_torch_tables.py holds the tables built
-from it against the JAX package's.
+package's ``tables/ise.py`` without its host-side encoder, which the port
+does not call; the host-side decoder ``decode_ise`` serves
+codec/block_info.py. tests/test_torch_tables.py holds the tables built from
+it against the JAX package's.
 
 The batched bit packing of the codec layer (codec/physical.py,
 codec/decode_tables.py) consumes the static layout descriptors produced by
@@ -222,3 +223,46 @@ def ise_layout(quant: int, count: int):
         "t_shift": t_shift,
         "total_bits": sequence_bitcount(count, quant),
     }
+
+
+def decode_ise(quant: int, count: int, data: np.ndarray, bit_offset: int = 0) -> np.ndarray:
+    """Decode a batch of BISE sequences.
+
+    Args:
+      quant: quant method index.
+      count: number of values to decode.
+      data: (..., nbytes) uint8 packed bitstream.
+      bit_offset: starting bit position within the stream.
+
+    Returns:
+      (..., count) int64 decoded values.
+    """
+    data = np.asarray(data, dtype=np.uint8)
+    lay = ise_layout(quant, count)
+    bits, trits, quints = lay["bits"], lay["trits"], lay["quints"]
+
+    bitplane = np.unpackbits(data[..., None], axis=-1, bitorder="little")
+    bitplane = bitplane.reshape(data.shape[:-1] + (-1,))
+
+    def read(off, nb):
+        v = np.zeros(data.shape[:-1], dtype=np.int64)
+        for b in range(nb):
+            v |= bitplane[..., bit_offset + off + b].astype(np.int64) << b
+        return v
+
+    out = np.zeros(data.shape[:-1] + (count,), dtype=np.int64)
+    for i in range(count):
+        out[..., i] = read(int(lay["m_offset"][i]), bits)
+
+    if trits or quints:
+        group = 5 if trits else 3
+        dec, _ = trit_tables() if trits else quint_tables()
+        ngroups = (count + group - 1) // group
+        T = np.zeros(data.shape[:-1] + (ngroups,), dtype=np.int64)
+        for i in range(count):
+            g = i // group
+            T[..., g] |= read(int(lay["t_offset"][i]), int(lay["t_bits"][i])) << int(lay["t_shift"][i])
+        hi = dec[T]  # (..., ngroups, group)
+        for i in range(count):
+            out[..., i] |= hi[..., i // group, i % group].astype(np.int64) << bits
+    return out

@@ -10,7 +10,8 @@ photographs, so the channels of most blocks are correlated. With
 its own (a seeded sinusoid with noise, as a mask or a detail map packed in
 alpha would be): blocks there have decorrelated channels, which the
 encoder's 2-plane stage (1 partition, alpha on its own weight plane) wins.
-``synthetic_hdr_image`` is the float16 HDR counterpart. ``pack_batch``
+``synthetic_hdr_image`` is the float16 HDR counterpart; ``alpha_holes``
+cuts seeded transparent regions into an image's alpha. ``pack_batch``
 makes the colour pack's inputs: seeded endpoint pairs, requested formats
 and quant levels, with the pack's corner cases added on request.
 """
@@ -126,6 +127,38 @@ def synthetic_hdr_image(height: int, width: int, seed: int = 0,
         img[..., 3] = np.where(x >= width // 2, np.clip(alpha, 0, 1),
                                img[..., 3])
     return np.clip(img, 0.0, 65504.0).astype(np.float16)
+
+
+def alpha_holes(image: np.ndarray, seed: int, count: int = 3) -> np.ndarray:
+    """``image`` (uint8 RGBA) with its alpha set to 0 inside ``count``
+    seeded discs of a fifth to a third of the shorter side in radius, as a
+    cut-out mask (foliage, decals) has: blocks well inside a disc are wholly
+    transparent, blocks at its edge partly so. RGB is left as it is."""
+    rng = np.random.default_rng(seed)
+    h, w = image.shape[:2]
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    out = image.copy()
+    for _ in range(count):
+        cx, cy = rng.uniform(0, w), rng.uniform(0, h)
+        r = rng.uniform(0.2, 0.34) * min(h, w)
+        out[..., 3][(x - cx) ** 2 + (y - cy) ** 2 < r * r] = 0
+    return out
+
+
+def footprint_image(kind: str, height: int, width: int,
+                    seed: int) -> np.ndarray:
+    """The image of a footprint fixture (tests/data/torch_footprints/),
+    every kind with an independent alpha: "ldr" (``synthetic_image``),
+    "hdr" (``synthetic_hdr_image``) or "ldr_holes" (``synthetic_image``
+    with ``alpha_holes`` of seed ``seed + 1``)."""
+    if kind == "hdr":
+        return synthetic_hdr_image(height, width, seed, independent_alpha=True)
+    img = synthetic_image(height, width, seed, independent_alpha=True)
+    if kind == "ldr_holes":
+        img = alpha_holes(img, seed + 1)
+    elif kind != "ldr":
+        raise ValueError(f"unknown fixture image kind {kind!r}")
+    return img
 
 
 def endpoint_pairs(rng, n: int):

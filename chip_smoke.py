@@ -73,13 +73,32 @@ non-zero and never prints the last line:
     card and on the CPU, against the JAX package's blocks committed as
     NumPy fixtures (tests/data/torch_ldr, tests/data/torch_hdr): at least
     90% of the card's blocks identical and PSNR (mPSNR) within 0.05 dB,
-    per image, the CPU port's agreement printed beside.
+    per image, the CPU port's agreement printed beside; then every
+    fixture of tests/data/torch_footprints (each legal 2D footprint at
+    -fastest, 4x4/6x6/8x8/12x12 at -fast to -exhaustive, 4x4 -thorough
+    -ch, 12x12 -medium -cH and 6x6 -medium with alpha-scale RDO; the
+    image remade by testdata.footprint_image from the fixture's kind,
+    seed and shape) encoded on the card, with the same gates, the share
+    printed per configuration (the CPU port's beside it where the card's
+    is below 1);
 15. card against CPU (ROADMAP §C3): the glue's summing sites (the
     encoding-choice errors, the ideal fit, k-means at 2 and 3 partitions,
     the 2-plane correlation, the block mean) on the first 4096 blocks of
     the main-path texture, bit for bit on the card and the CPU; and a
     256x256 LDR and a 256x256 -ch image encoded on the card and by the
     CPU port, block by block (share printed, at least 99.9% identical).
+16. footprints at full size: 4x4 -medium (HIGH preset row), 8x8 -thorough
+    and 12x12 -exhaustive (LOW row: T up to 144, 8 candidates, 4 rounds)
+    on the main-path 2048x2048 texture, and 4x4 -thorough -ch on the
+    1024x1024 centre of phase 8's HDR texture, each after a warm-up encode
+    of a 256x256 crop at its configuration: encode seconds, Mtexels/s,
+    PSNR or mPSNR, block counts by (partitions, planes), launches by
+    kernel (counts set to 0 just before the encode and read just after),
+    the peak of torch.cuda.max_memory_allocated over the encode, and the
+    crop (whole blocks at the bottom centre, in the encode's last chunk)
+    through the kernels against the plain versions and against the full
+    encode's blocks there (>= 99% of blocks identical, each); then a
+    profiled 4x4 -medium encode (device busy, idle share, time by kernel).
 
 The fused main paths (phases 5 and 8) must launch K8 no time, as on the
 TPU. The lines before the last are the kernel table as JSON (K1-K4
@@ -716,6 +735,128 @@ def _jax_fixtures(api, testdata, metrics, dev):
     return rows
 
 
+def _footprint_fixtures(api, testdata, metrics, decompress, dev):
+    """Phase 14, footprints: per fixture of tests/data/torch_footprints,
+    the card's share of blocks identical to JAX's and the decoded quality
+    of the card's blocks and of JAX's (decoded by the port)."""
+    folder = os.path.join(_DATA, "torch_footprints")
+    rows = []
+    for fname in sorted(os.listdir(folder)):
+        fx = np.load(os.path.join(folder, fname))
+        profile = int(fx["profile"])
+        bx, by = (int(v) for v in fx["block"])
+        cfg = api.config_init(api.Profile(profile), bx, by, 1,
+                              float(fx["quality"]), 0)
+        cfg.a_scale_radius = int(fx["a_scale_radius"])
+        h, w = (int(v) for v in fx["shape"])
+        img = testdata.footprint_image(str(fx["kind"]), h, w,
+                                       int(fx["seed"]))
+        ctx = api.context_alloc(cfg, device=dev)
+        got = api.compress_image(ctx, img)
+        want = fx["blocks"]
+        assert got.shape == want.shape, (fname, got.shape, want.shape)
+        ident = float((got == want).all(1).mean())
+        hdr = profile >= int(api.Profile.HDR_RGB_LDR_A)
+        if hdr:
+            src = img.astype(np.float32)
+            qg, qw = (metrics.mpsnr(api.decompress_image(
+                ctx, b, w, h, out_type="f32")[0], src) for b in (got, want))
+        else:
+            qg, qw = (_psnr(api.decompress_image(ctx, b, w, h)[0], img)
+                      for b in (got, want))
+        row = {"config": str(fx["name"]), "blocks": int(want.shape[0]),
+               "card_identical": ident,
+               ("mpsnr_db" if hdr else "psnr_db"): qg, "jax_db": qw,
+               "kinds": _block_kinds(decompress, ctx, got)}
+        if ident < 1.0:
+            cpu = api.compress_image(api.context_alloc(cfg, device="cpu"),
+                                     img)
+            row["cpu_identical"] = float((cpu == want).all(1).mean())
+            row["card_vs_cpu"] = float((cpu == got).all(1).mean())
+        assert ident >= 0.9 and abs(qg - qw) <= 0.05, row
+        rows.append(row)
+    assert len(rows) >= 32, f"{len(rows)} footprint fixtures"
+    return rows
+
+
+# Phase 16: (tag, profile, footprint, quality, image): "main" is the
+# main-path texture, "hdr" the 1024x1024 centre of phase 8's HDR texture.
+FULL_SIZE = (("4x4 -medium", "LDR", 4, "MEDIUM", "main"),
+             ("8x8 -thorough", "LDR", 8, "THOROUGH", "main"),
+             ("12x12 -exhaustive", "LDR", 12, "EXHAUSTIVE", "main"),
+             ("4x4 -thorough -ch", "HDR_RGB_LDR_A", 4, "THOROUGH", "hdr"))
+
+
+def _full_footprints(api, compress_mod, decompress, metrics, counters, img,
+                     img_h, dev, smi, at):
+    """Phase 16: the FULL_SIZE configurations through api.compress_image;
+    returns the 4x4 -medium context for the profile."""
+    ctxs = {}
+    for tag, prof, fp, quality, which in FULL_SIZE:
+        cfg = api.config_init(getattr(api.Profile, prof), fp, fp, 1,
+                              getattr(api.Quality, quality), 0)
+        ctx = api.context_alloc(cfg, device=dev)
+        ctxs[tag] = ctx
+        hdr = which == "hdr"
+        if hdr:
+            q = img_h.shape[0] // 4
+            image = np.ascontiguousarray(img_h[q:3 * q, q:3 * q])
+        else:
+            image = img
+        H, W = image.shape[:2]
+        # A crop of whole blocks at the bottom centre, in the last chunk of
+        # the encode: its blocks must be the full encode's there.
+        side = CROP - CROP % fp
+        y0 = (H - side) // fp * fp
+        x0 = (W // 2 - side // 2) // fp * fp
+        crop = np.ascontiguousarray(image[y0:y0 + side, x0:x0 + side])
+        b_k = api.compress_image(ctx, crop)                 # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        _reset(*counters)
+        t0 = time.perf_counter()
+        blocks = api.compress_image(ctx, image)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        launches = _counts(*counters)
+        peak = torch.cuda.max_memory_allocated(dev)
+        need = (("msearch", "psearch", "refine_round", "refine_round2",
+                 "refine_boot2", "color_pack") if hdr
+                else ("msearch", "refine", "refine2", "psearch"))
+        assert all(launches[k] > 0 for k in need), (tag, launches)
+        assert launches["row_gather"] == 0, (tag, launches)
+        nx = -(-W // fp)
+        n = -(-H // fp) * nx
+        assert blocks.shape == (n, 16), (tag, blocks.shape)
+        rows = (np.arange(y0 // fp, (y0 + side) // fp)[:, None] * nx
+                + np.arange(x0 // fp, (x0 + side) // fp)[None, :]).ravel()
+        in_full = float((blocks[rows] == b_k).all(1).mean())
+        assert in_full >= 0.99, (tag, "crop vs full encode", in_full)
+        out = "f32" if hdr else "u8"
+        dec = api.decompress_image(ctx, blocks, W, H, out_type=out)[0]
+        assert dec.shape == image.shape and np.isfinite(dec).all(), tag
+        if hdr:
+            quality_db = metrics.mpsnr(dec, image.astype(np.float32))
+        else:
+            quality_db = _psnr(dec, image)
+        assert quality_db > 20.0, (tag, quality_db)
+        kinds = _block_kinds(decompress, ctx, blocks)
+        b_p = compress_mod.compress_image(ctx, crop, use_kernels=False)
+        ident = float((b_k == b_p).all(1).mean())
+        assert ident >= 0.99, (tag, "crop identical blocks", ident)
+        print(f"{at()} full size {tag}: {W}x{H} {'float16' if hdr else 'RGBA8'}"
+              f", {n} blocks, encode {enc_s:.3f} s = "
+              f"{W * H / enc_s / 1e6:.4f} Mtexels/s, "
+              f"{'mPSNR' if hdr else 'PSNR'} {quality_db:.4f} dB, blocks "
+              f"{json.dumps(kinds)}, launches {json.dumps(launches)}, "
+              f"max_memory_allocated {peak / 2**30:.3f} GiB ({base / 2**30:.3f}"
+              f" GiB before), {side}x{side} crop at ({x0}, {y0}) kernels vs "
+              f"plain versions {ident:.4f} identical, vs the full encode's "
+              f"blocks there {in_full:.4f} | {smi}", flush=True)
+    return ctxs["4x4 -medium"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1347,6 +1488,13 @@ def main() -> int:
     # --- 14. the card's blocks against JAX's -------------------------------
     for row in _jax_fixtures(api, testdata, metrics, dev):
         print(f"{at()} JAX blocks: {json.dumps(row)} | {smi}", flush=True)
+    rows = _footprint_fixtures(api, testdata, metrics, decompress, dev)
+    for row in rows:
+        print(f"{at()} JAX blocks, footprints: {json.dumps(row)}",
+              flush=True)
+    print(f"{at()} JAX blocks, footprints: {len(rows)} configurations, "
+          f"card identical {min(r['card_identical'] for r in rows):.4f} at "
+          f"least | {smi}", flush=True)
 
     # --- 15. card against CPU: the summing sites and two 256x256 encodes -----
     sites = _c3_sites(api, compress_mod, partition_search, img, dev)
@@ -1367,6 +1515,13 @@ def main() -> int:
               f"{same.size} blocks identical card vs CPU; differing blocks "
               f"{np.flatnonzero(~same).tolist()}", flush=True)
         assert same.mean() >= 0.999, (tag, float(same.mean()))
+
+    # --- 16. footprints at full size --------------------------------------
+    ctx4 = _full_footprints(api, compress_mod, decompress, metrics, counters,
+                            img, img_h, dev, smi, at)
+    prof4 = _profile(lambda: api.compress_image(ctx4, img))
+    print(f"{at()} profile 4x4 -medium ({SIZE}x{SIZE}): {json.dumps(prof4)}"
+          f" | {smi}", flush=True)
 
     meta = {"K1": ("msearch", "astcenc_torch/csrc/msearch.cu",
                    "astcenc_tpu/ops/msearch_pallas.py:281"),
