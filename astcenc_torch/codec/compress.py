@@ -6,7 +6,10 @@ with _stage1_1plane (:290-411), _stage2a_2plane (:432-494),
 _stage2b_multipart and _stage2b_one_pc (:497-619), _finalize_pack
 (:622-646), and compress_image (:1001-1123): with its alpha-scale RDO
 (:1051-1059, :1081-1082; the mask ``_alpha_zero_blocks``, :1184-1215) and
-its cancel check before each chunk (:1086-1095).
+its cancel check before each chunk (:1086-1095). It takes what the JAX
+encoder takes: 2D and 3D footprints, per-block alpha weighting
+(USE_ALPHA_WEIGHT: the block state's ``cw_scale``), RGBM (the trials'
+RGBM metric) and non-finite floats (NaN to 0, infinities clamped).
 
 Every block of a chunk goes through stage 1 (the mode-0 pass and the full
 1-partition 1-plane pass). Each later stage runs only on the blocks it
@@ -41,9 +44,12 @@ Flags = host_config.Flags
 Profile = host_config.Profile
 
 
-def make_block_state(texels, profile: int = 1):
+def make_block_state(texels, profile: int = 1, alpha_weight: bool = False):
     """Per-block state dict from (N, T, 4) float32 texels. The mean adds
-    in the CPU's order of ``texels.mean(1)`` on every device."""
+    in the CPU's order of ``texels.mean(1)`` on every device. With
+    ``alpha_weight`` (USE_ALPHA_WEIGHT) it holds ``cw_scale``, each block's
+    largest alpha over 65535, which scales its R, G and B error weights
+    (compress.py:100-103; reference astcenc_entry.cpp:1016-1035)."""
     data_min = texels.amin(1)
     data_max = texels.amax(1)
     gray = ((texels[..., 0] == texels[..., 1])
@@ -51,7 +57,7 @@ def make_block_state(texels, profile: int = 1):
     default_alpha = 30720.0 if profile == 3 else 65535.0
     alpha1 = (data_min[:, 3] == default_alpha) & (
         data_max[:, 3] == default_alpha)
-    return {
+    st = {
         "texels": texels, "data_min": data_min, "data_max": data_max,
         "data_mean": sf.div(ts.block_sum(texels), float(texels.shape[1])),
         "grayscale": gray,
@@ -59,37 +65,33 @@ def make_block_state(texels, profile: int = 1):
         "is_luminance": gray & alpha1, "is_luminancealpha": gray & ~alpha1,
         "default_alpha": default_alpha,
     }
+    if alpha_weight:
+        st["cw_scale"] = data_max[:, 3] * (1.0 / 65535.0)
+    return st
 
 
 def _lowest_correlation(texels, channel_weight):
     """prepare_block_statistics (reference :1047-1159): the smallest
-    |correlation| between two channels of each block. Its sums add in one
-    order on every device: the channel sums as the CPU's ``x.sum(1)``, the
-    products of channel pairs texel after texel."""
-    cw = torch.tensor(channel_weight, dtype=torch.float32,
-                      device=texels.device)
-    weight = sf.sum4(cw) / 4.0
+    |correlation| between two channels of each block; ``channel_weight`` a
+    static tuple or per-block (N, 4) weights. Its sums add in one order on
+    every device: the channel sums as the CPU's ``x.sum(1)``, the products
+    of channel pairs texel after texel."""
+    if torch.is_tensor(channel_weight):
+        weight = (sf.sum4(channel_weight) / 4.0)[:, None]     # (N, 1)
+    else:
+        weight = sf.sum4(torch.tensor(channel_weight, dtype=torch.float32,
+                                      device=texels.device)) / 4.0
     T = texels.shape[1]
     rpt = 1.0 / torch.clamp(weight * T, min=1e-7)
     s = ts.block_sum(texels) * weight
-    var = ts.texel_sum(texels, texels) * weight
-    var = var - s[:, :, None] * s[:, None, :] * rpt
+    var = ts.texel_sum(texels, texels) * weight[..., None]
+    var = var - s[:, :, None] * s[:, None, :] * rpt[..., None]
     d = sf.sqrt(torch.clamp(torch.diagonal(var, dim1=1, dim2=2), min=0.0))
     denom = d[:, :, None] * d[:, None, :]
     corr = var / torch.where(denom > 0, denom, 1.0)
     corr = torch.where(torch.isnan(corr) | (denom == 0), 1.0, corr)
     iu = torch.triu_indices(4, 4, offset=1, device=texels.device)
     return corr[:, iu[0], iu[1]].abs().amin(1)
-
-
-def check_supported(cfg) -> None:
-    """Refuse what the port does not do yet: RGBM, USE_ALPHA_WEIGHT and 3D
-    blocks."""
-    for flag in (Flags.USE_ALPHA_WEIGHT, Flags.MAP_RGBM):
-        if cfg.flags & flag:
-            raise NotImplementedError(f"{flag.name} is not ported yet")
-    if cfg.block_z > 1:
-        raise NotImplementedError("3D block encoding is not ported yet")
 
 
 def _u8_mask(cfg) -> bool:
@@ -127,7 +129,8 @@ def stage1_1plane(ctx, texels, use_kernels: bool = True,
     profile = int(cfg.profile)
     dev = texels.device
     N, T, _ = texels.shape
-    st = make_block_state(texels, profile)
+    st = make_block_state(texels, profile,
+                          bool(cfg.flags & Flags.USE_ALPHA_WEIGHT))
     is_const = (st["data_min"] == st["data_max"]).all(1)
     tex0 = texels[:, 0]
     if profile >= int(Profile.HDR_RGB_LDR_A):
@@ -142,8 +145,9 @@ def stage1_1plane(ctx, texels, use_kernels: bool = True,
         const_color = torch.floor(torch.clamp(tex0 / 65535.0, 0.0, 1.0)
                                   * 65535.0 + 0.5).to(torch.int32)
 
-    cw = trial.effective_cw(cfg)
-    ews = float(sum(cw)) * T
+    # error_weight_sum (reference :1204), per block under USE_ALPHA_WEIGHT.
+    cw = trial.effective_cw(cfg, st)
+    ews = (sf.sum4(cw) * T if torch.is_tensor(cw) else float(sum(cw)) * T)
     l_scale = torch.where(st["is_luminance"], 1.0 / 1.5, 1.0)
     la_scale = torch.where(st["is_luminancealpha"], 1.0 / 1.05, 1.0)
     error_threshold = cfg.tune_db_limit * ews * l_scale * la_scale
@@ -266,7 +270,7 @@ def stage2b_one_pc(ctx, st, scb, quant_limit, best_prev, pc: int,
     ntrials = min(_req_trials(cfg, pc), _req_index(cfg, pc))
     tabs = ctx.partition_tables(pc)
     seeds, valid = partition_search.find_best_partition_candidates(
-        st, tabs, T, trial.effective_cw(cfg), pc, _req_index(cfg, pc),
+        st, tabs, T, trial.config_cw(cfg), pc, _req_index(cfg, pc),
         ntrials, use_kernels=use_kernels)
     ntr = min(ntrials, seeds.shape[1])
     rows = tabs.packed_index[seeds[:, :ntr].clamp(0, 1023).to(torch.int64)
@@ -487,7 +491,6 @@ def compress_image(ctx, image, swizzle=(0, 1, 2, 3), progress_callback=None,
     it is set (``api.compress_cancel``), the blocks of the chunks not
     started come back as zero bytes (compress.py:1086-1095).
     """
-    check_supported(ctx.config)
     ctx.cancel_requested = False
     disabled = gather.disabled_kernels()
     blocks = image_to_blocks(ctx, image, swizzle)

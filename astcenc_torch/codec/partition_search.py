@@ -15,6 +15,7 @@ import types
 import numpy as np
 import torch
 
+from ..ops import ideal as ideal_ops
 from ..ops import psearch as psearch_ops
 from ..ops import softfloat as sf
 from ..ops import texel_sum as ts
@@ -71,12 +72,16 @@ def _popcount(x):
 def kmeans(texels, cw, texel_count: int, partition_count: int):
     """Three rounds of k-means (reference:
     compute_kmeans_partition_ordering; port of ``_kmeans``,
-    partition_search.py:27-85). Returns (N, T) int64 cluster per texel.
+    partition_search.py:27-85). ``cw``: a static tuple or per-block (N, 4)
+    weights. Returns (N, T) int64 cluster per texel.
     Its sums add in the same order on every device (``ops/texel_sum.py``,
     ``softfloat.sum4``), so the card assigns the texels as the CPU does."""
     N, T, _ = texels.shape
     dev = texels.device
-    cwt = torch.tensor(cw, dtype=torch.float32, device=dev)
+    if torch.is_tensor(cw):
+        cwt, cwk = cw[:, None, :], cw[:, None, None, :]
+    else:
+        cwt = cwk = torch.tensor(cw, dtype=torch.float32, device=dev)
     ni = torch.arange(N, device=dev)
 
     def dist_to(center):
@@ -100,7 +105,7 @@ def kmeans(texels, cw, texel_count: int, partition_count: int):
 
     def assign(centers):
         d = texels[:, :, None, :] - centers[:, None, :, :]
-        part = sf.sum4(d * d * cwt).argmin(-1)               # first minimum
+        part = sf.sum4(d * d * cwk).argmin(-1)               # first minimum
         # Empty clusters take texel k (reference kmeans_assign :184-198).
         for _ in range(partition_count):
             for k in range(partition_count):
@@ -179,15 +184,19 @@ def find_best_partition_candidates(st, tabs, texel_count: int, cw,
     find_best_partition_candidates, :551-779; port of
     partition_search.py:138-263).
 
-    tabs: ``device_tables`` of this partition count. Returns (seeds (N, C)
-    int32 raw seeds, valid (N, C) bool)."""
+    tabs: ``device_tables`` of this partition count; cw: the config's
+    channel weights, scaled per block by ``st["cw_scale"]`` where the
+    block state has one (USE_ALPHA_WEIGHT, partition_search.py:149-157).
+    Returns (seeds (N, C) int32 raw seeds, valid (N, C) bool)."""
     texels = st["texels"]
     N = texels.shape[0]
     P = partition_count
     search = min(partition_search_limit, tabs.count_selected)
     reqc = min(requested_candidates, search)
 
-    part = kmeans(texels, cw, texel_count, P)
+    cw_scale = st.get("cw_scale")
+    part = kmeans(texels, ideal_ops.block_channel_weights(cw, cw_scale),
+                  texel_count, P)
     km_at = part[:, tabs.kmeans_texels]                       # (N, <=64)
     shifts = torch.arange(km_at.shape[1], device=texels.device)
     words = torch.stack(
@@ -198,7 +207,8 @@ def find_best_partition_candidates(st, tabs, texel_count: int, cw,
     uncor, samec = psearch_ops.line_errors(
         texels.contiguous(), st["uses_alpha"].to(torch.int32).contiguous(),
         top.contiguous(), tabs.pot, tabs.counts, P,
-        _weight_imprecision(texel_count), cw, use_kernel=use_kernels)
+        _weight_imprecision(texel_count), cw, cw_scale=cw_scale,
+        use_kernel=use_kernels)
     return select_candidates(uncor, samec, tabs.seed, top.to(torch.int64),
                              reqc)
 

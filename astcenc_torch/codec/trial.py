@@ -29,6 +29,7 @@ import types
 import numpy as np
 import torch
 
+from .. import config as host_config
 from ..tables import quant
 from ..ops import angular as ang
 from ..ops import color_pack_hdr as cph
@@ -253,11 +254,25 @@ def pass_tables(et: EncoderTables, kind: str, pc: int, device):
     return pt
 
 
-def effective_cw(cfg):
-    """Channel weights: the static config tuple. Per-block weights
-    (USE_ALPHA_WEIGHT) are not ported, and the driver refuses them."""
+def config_cw(cfg):
+    """The config's channel weights, a static 4-tuple."""
     return (float(cfg.cw_r_weight), float(cfg.cw_g_weight),
             float(cfg.cw_b_weight), float(cfg.cw_a_weight))
+
+
+def effective_cw(cfg, st=None):
+    """Per-block channel weights (trial.py:45-57): with USE_ALPHA_WEIGHT
+    the block state holds ``cw_scale`` and each block's R, G and B weights
+    scale by it, an (N, 4) tensor; otherwise the static config tuple."""
+    return ideal_ops.block_channel_weights(
+        config_cw(cfg), None if st is None else st.get("cw_scale"))
+
+
+def rgbm_scale(cfg) -> float:
+    """The M scale of the RGBM trial metric, or 0 without MAP_RGBM
+    (compress.py:61-62)."""
+    return (float(cfg.rgbm_m_scale)
+            if cfg.flags & host_config.Flags.MAP_RGBM else 0.0)
 
 
 def empty_scb(N: int, T: int, device):
@@ -330,7 +345,7 @@ def _color_error_tables(eci, ep0, ep1, counts, cw, profile: int):
 def _hdr_rounds_1plane(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
                        pot, ep0, ep1, C: int, R: int, u8_mask: bool,
                        cw: tuple, profile: int, use_kernels: bool,
-                       refine: bool):
+                       refine: bool, cw_scale=None, rgbm: float = 0.0):
     """The R rounds of a 1-plane HDR trial (JAX trial.py:624-659): one
     bootstrap round (K5 with no realign) for the first infill, then per
     round the least-squares refit with the RGBO vector, the pack of both
@@ -338,6 +353,7 @@ def _hdr_rounds_1plane(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
     ``refine.trial1_refine``; with ``refine`` False the rounds run their
     plain version (its lookups on K8 unless ``use_kernels`` is False)."""
     NC, W = wgrid0.shape
+    cw_l = refine_ops.lane_cw(cw, cw_scale, C)
     pc = fmt_req.shape[1]
     dev = texels.device
     tex = texels.repeat_interleave(C, 0)
@@ -350,7 +366,8 @@ def _hdr_rounds_1plane(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
     def rnd(grid, alive, d0, d1, ncolors):
         return refine_ops.refine_round_1plane(
             pt, grid, dm, wq, alive, d0, d1, texels, pot, C, ncolors,
-            u8_mask, cw, use_kernel=refine, gathers=use_kernels)
+            u8_mask, cw, cw_scale=cw_scale, rgbm=rgbm, use_kernel=refine,
+            gathers=use_kernels)
 
     zero = torch.zeros((NC, 4, 4), dtype=torch.int32, device=dev)
     undec = rnd(wgrid0, alive, zero, zero, 0)["undec"]
@@ -359,7 +376,7 @@ def _hdr_rounds_1plane(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
                            "err_post")}
     for r in range(R):
         rc = recompute_ops.recompute_ideal_colors_1plane(
-            tex, pmask, counts, undec, cw, e0, e1, is_hdr=True)
+            tex, pmask, counts, undec, cw_l, e0, e1, is_hdr=True)
         e0, e1 = rc["ep0"], rc["ep1"]
 
         def pack(q):
@@ -392,7 +409,8 @@ def _hdr_rounds_1plane(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
 def _hdr_rounds_2plane(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
                        texels, data_mean, ep0, ep1, C: int, R: int,
                        u8_mask: bool, cw: tuple, profile: int,
-                       use_kernels: bool, refine: bool):
+                       use_kernels: bool, refine: bool, cw_scale=None,
+                       rgbm: float = 0.0):
     """The R rounds of a 2-plane HDR trial (JAX trial.py:1192-1226): one
     K7 launch for both first infills, then per round the 2-plane refit
     with the RGBO vector, the pack, the decode and one K6 round. Arguments
@@ -401,6 +419,7 @@ def _hdr_rounds_2plane(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
     NC, W = wg1_0.shape
     N = ep0.shape[0]
     dev = texels.device
+    cw_l = refine_ops.lane_cw(cw, cw_scale, C)
     rows = torch.arange(N, device=dev) % texels.shape[0]
     tex = texels[rows].repeat_interleave(C, 0)
     mean = data_mean[rows].repeat_interleave(C, 0)
@@ -412,7 +431,8 @@ def _hdr_rounds_2plane(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
     def rnd(g1, g2, alive, d0, d1, ncolors):
         return refine_ops.refine_round_2plane(
             pt, g1, g2, dm, wq, alive, p2c, d0, d1, texels, C, ncolors,
-            u8_mask, cw, use_kernel=refine, gathers=use_kernels)
+            u8_mask, cw, cw_scale=cw_scale, rgbm=rgbm, use_kernel=refine,
+            gathers=use_kernels)
 
     zero = torch.zeros((NC, 4), dtype=torch.int32, device=dev)
     boot = rnd(wg1_0, wg2_0, alive, zero, zero, 0)
@@ -421,7 +441,7 @@ def _hdr_rounds_2plane(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
     out = {k: [] for k in ("fmt", "vals", "w1post", "w2post", "err_post")}
     for r in range(R):
         rc = recompute_ops.recompute_ideal_colors_2planes(
-            tex, u1, u2, p2c_f, cw, mean, e0, e1, is_hdr=True)
+            tex, u1, u2, p2c_f, cw_l, mean, e0, e1, is_hdr=True)
         e0, e1 = rc["ep0"], rc["ep1"]
         fmt, vals = cph.pack_color_endpoints(
             profile, e0, e1, rc["rgbs"], rc["rgbo"], fmt_req, cq,
@@ -463,7 +483,8 @@ def trial1_records(st, pt, cfg, profile: int, u8_mask: bool, quant_limit,
     dev = texels.device
     N, T, _ = texels.shape
     pc = pt.pc
-    cw = effective_cw(cfg)
+    cw = effective_cw(cfg, st)
+    cws = st.get("cw_scale")
     k_msearch, k_refine = _switches(use_kernels, disabled)
     if pot is None:
         pot = torch.zeros((N, T), dtype=torch.int32, device=dev)
@@ -506,11 +527,13 @@ def trial1_records(st, pt, cfg, profile: int, u8_mask: bool, quant_limit,
     args = (pt, wgrid0, flat("dm"), flat("wq"), valid_f, flat("cq"),
             flat("cqm"), ms["fmt"].reshape(NC, pc).contiguous(),
             texels.contiguous(), pot.to(torch.int32).contiguous(),
-            ep0.contiguous(), ep1.contiguous(), C, R, u8_mask, cw, profile)
+            ep0.contiguous(), ep1.contiguous(), C, R, u8_mask,
+            config_cw(cfg), profile)
+    kw = {"cw_scale": cws, "rgbm": rgbm_scale(cfg)}
     if profile >= HDR_RGB_LDR_A:
-        rf = _hdr_rounds_1plane(*args, use_kernels, k_refine)
+        rf = _hdr_rounds_1plane(*args, use_kernels, k_refine, **kw)
     else:
-        rf = refine_ops.trial1_refine(*args, use_kernel=k_refine,
+        rf = refine_ops.trial1_refine(*args, **kw, use_kernel=k_refine,
                                       gathers=use_kernels)
 
     def rec(name):
@@ -595,7 +618,8 @@ def trial2_records(st, pt, cfg, profile: int, u8_mask: bool, quant_limit,
     texels = st["texels"]
     dev = texels.device
     N0, T, _ = texels.shape
-    cw = effective_cw(cfg)
+    cw = effective_cw(cfg, st)
+    cws = st.get("cw_scale")
     k_msearch, k_refine = _switches(use_kernels, disabled)
     pmask = torch.ones((N0, T, 1), device=dev)
     counts = torch.full((N0, 1), T, dtype=torch.int32, device=dev)
@@ -617,6 +641,10 @@ def trial2_records(st, pt, cfg, profile: int, u8_mask: bool, quant_limit,
     tex4 = texels.repeat(4, 1, 1)
     quant_limit = quant_limit.repeat(4)
     ext_valid = ext_valid.T.reshape(N)
+    if cws is not None:
+        # The four components' rows share their block's scale
+        # (trial.py:934-935).
+        cw, cws = cw.repeat(4, 1), cws.repeat(4)
 
     err_lane = torch.arange(4, device=dev)[None, :] == p2c[:, None]
     e10, e11 = ei1["ep0"][:, 0], ei1["ep1"][:, 0]
@@ -661,11 +689,12 @@ def trial2_records(st, pt, cfg, profile: int, u8_mask: bool, quant_limit,
             ms["fmt"][..., 0].reshape(NC).contiguous(), p2c,
             texels.contiguous(), st["data_mean"].contiguous(),
             ep0m[:, 0].contiguous(), ep1m[:, 0].contiguous(), C, R, u8_mask,
-            cw, profile)
+            config_cw(cfg), profile)
+    kw = {"cw_scale": cws, "rgbm": rgbm_scale(cfg)}
     if profile >= HDR_RGB_LDR_A:
-        rf = _hdr_rounds_2plane(*args, use_kernels, k_refine)
+        rf = _hdr_rounds_2plane(*args, use_kernels, k_refine, **kw)
     else:
-        rf = refine_ops.trial2_refine(*args, use_kernel=k_refine,
+        rf = refine_ops.trial2_refine(*args, **kw, use_kernel=k_refine,
                                       gathers=use_kernels)
 
     K = R + 1

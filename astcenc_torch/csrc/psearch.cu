@@ -27,6 +27,10 @@
 // reductions; two candidates a warp and one shuffle step fewer per
 // reduction cut the passes and butterflies per candidate.
 //
+// Forms: with a non-null cw_scale (USE_ALPHA_WEIGHT; psearch_pallas.py's
+// has_asr) each block's R, G and B weights are the config's times its
+// scale; null gives the static form unchanged.
+//
 // phases: load means directions line_errors output
 
 #include <cuda_runtime.h>
@@ -51,6 +55,7 @@ struct Args {
   int N, S, T;
   float wie;
   float cw[4];
+  const float* cw_scale; // (N,) alpha scale of each block, or null
   float* out_u;          // (N, S)
   float* out_s;          // (N, S)
 };
@@ -108,6 +113,9 @@ psearch_kernel(Args a) {
   __syncthreads();
 
   const bool ua = a.ua[n] != 0;
+  // The block's weights: R, G and B times its alpha scale (USE_ALPHA_WEIGHT).
+  const float s = a.cw_scale ? a.cw_scale[n] : 1.f;
+  const float cw[4] = {a.cw[0] * s, a.cw[1] * s, a.cw[2] * s, a.cw[3]};
   const float cm[4] = {1.f, 1.f, 1.f, ua ? 1.f : 0.f};
   // sqrt(ncomp) of the plain version's unit diagonal cm / sqrt(ncomp).
   const float root_nc = ua ? 2.f : (float)1.7320508075688772;
@@ -257,8 +265,8 @@ psearch_kernel(Args a) {
           for (int c = 0; c < 4; ++c) {
             const float du = (am[c] + pu * bu[c]) - x[c];
             const float ds = pv * bs[c] - x[c];
-            eu += du * du * a.cw[c] * cm[c];
-            es += ds * ds * a.cw[c] * cm[c];
+            eu += du * du * cw[c] * cm[c];
+            es += ds * ds * cw[c] * cm[c];
           }
           uerr[hh] += eu;
           serr[hh] += es;
@@ -302,12 +310,13 @@ int launch(const Args& a, void* stream) {
 extern "C" int astc_psearch(const float* texels, const int* ua,
                             const int* top, const int* pot, int N, int S,
                             int T, int P, float wie, float cw0, float cw1,
-                            float cw2, float cw3, float* out_u, float* out_s,
+                            float cw2, float cw3, const float* cw_scale,
+                            float* out_u, float* out_s,
                             void* stream) {
   if (N < 0 || S < 1 || T < 1 || T > 32 * kMaxPer - 8 || P < 2 || P > 4)
     return (int)cudaErrorInvalidValue;
-  Args a{texels, ua, top, pot, N, S, T, wie, {cw0, cw1, cw2, cw3}, out_u,
-         out_s};
+  Args a{texels, ua, top, pot, N, S, T, wie, {cw0, cw1, cw2, cw3}, cw_scale,
+         out_u, out_s};
   if (N == 0) return 0;
   switch (P) {
     case 2: return launch<2>(a, stream);

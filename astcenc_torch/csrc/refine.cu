@@ -28,6 +28,12 @@
 // errors are integer-valued float arithmetic; the refit needs IEEE
 // divides and square roots, so this file is built without fast math.
 //
+// Forms: with a non-null cw_scale (USE_ALPHA_WEIGHT; the TPU kernel's
+// has_asr) each block's R, G and B weights are the config's times its
+// scale (block_cw), its refit weights with them; rgbm > 0 selects the
+// RGBM trial metric (trial_error). A null cw_scale and rgbm 0 give the
+// static form unchanged, and a scale of 1 the static form's outputs.
+//
 // phases: setup refit pack decode trial_error realign output
 
 #include <cuda_runtime.h>
@@ -66,6 +72,8 @@ struct Args {
   const int* lohi;           // (2, 17, 256)
   int N, C, T, W, D, K, R, pc, ncolors, u8_mask, profile;
   float cw[4];
+  const float* cw_scale;     // (N,) alpha scale of each block, or null
+  float rgbm;                // RGBM scale, or 0
   int* out_i;                // (R, NC, 40 + W)
   float* out_e;              // (R + 1, NC)
 };
@@ -123,9 +131,9 @@ refine_kernel(Args a) {
   const int NC = a.N * C;
   const int i = b * C + warp;
   PHASE_START(lane == 0);
-  const float cw[4] = {a.cw[0], a.cw[1], a.cw[2], a.cw[3]};
-  const float ls_weight =
-      (float)((double)a.cw[0] + (double)a.cw[1] + (double)a.cw[2]);
+  float cw[4];
+  block_cw(a.cw, a.cw_scale ? a.cw_scale[b] : 1.f, cw);
+  const float ls_weight = rgb_weight(cw);
 
   float* tex = smem;                              // (T, 4)
   int* pid = reinterpret_cast<int*>(tex + 4 * T);
@@ -386,7 +394,7 @@ refine_kernel(Args a) {
 
     if (r == 0) {
       const float ep = trial_error(lane, T, tex, e0t, e1t, st, wg, wg, -1, cw,
-                                   a.u8_mask != 0);
+                                   a.u8_mask != 0, a.rgbm);
       if (lane == 0) a.out_e[i] = alive ? ep : kBig;
     }
     PHASE_MARK(4);
@@ -396,7 +404,7 @@ refine_kernel(Args a) {
                          pnq, wg, x);
     PHASE_MARK(5);
     const float ep = trial_error(lane, T, tex, e0t, e1t, st, wg, wg, -1, cw,
-                                 a.u8_mask != 0);
+                                 a.u8_mask != 0, a.rgbm);
     PHASE_MARK(4);
     int* o = a.out_i + ((size_t)r * NC + i) * (kOut + W);
     if (lane == 0) a.out_e[(size_t)(r + 1) * NC + i] = alive ? ep : kBig;
@@ -441,16 +449,16 @@ extern "C" int astc_refine(
     const int* tap_i, const int* wt_t, const int* wt_i, const int* wt_n,
     const int* dm_color, const int* pn, const int* lohi, int N, int C, int T,
     int W, int D, int K, int R, int pc, int ncolors, int u8_mask, int profile,
-    float cw0, float cw1, float cw2, float cw3, int* out_i, float* out_e,
-    void* stream) {
+    float cw0, float cw1, float cw2, float cw3, const float* cw_scale,
+    float rgbm, int* out_i, float* out_e, void* stream) {
   if (N < 0 || C < 1 || C > kMaxC || W > 64 || T > 216 || R < 1 || pc < 1
       || pc > 4 || ncolors < 0 || ncolors > kMaxClasses
       || (profile != 0 && profile != 1))
     return (int)cudaErrorInvalidValue;
   Args a{wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels, pot, ep0, ep1,
          tap_w, tap_i, wt_t, wt_i, wt_n, dm_color, pn, lohi, N, C, T, W, D, K,
-         R, pc, ncolors, u8_mask, profile, {cw0, cw1, cw2, cw3}, out_i,
-         out_e};
+         R, pc, ncolors, u8_mask, profile, {cw0, cw1, cw2, cw3}, cw_scale,
+         rgbm, out_i, out_e};
   const int smem = 4 * (block_words(T) + C * warp_words(T, W));
   if (N == 0) return 0;
   switch (pc) {

@@ -28,6 +28,12 @@
 //
 // Built without fast math: the refit needs IEEE divides and square roots.
 //
+// Forms: with a non-null cw_scale (USE_ALPHA_WEIGHT; the TPU kernel's
+// has_asr) each block's R, G and B weights are the config's times its
+// scale (block_cw), its refit weights with them; rgbm > 0 selects the
+// RGBM trial metric (trial_error). A null cw_scale and rgbm 0 give the
+// static form unchanged, and a scale of 1 the static form's outputs.
+//
 // phases: setup refit solve pack decode trial_error realign output
 
 #include <cuda_runtime.h>
@@ -69,6 +75,8 @@ struct Args {
   int N, N0, C, T, W, D, K, R, ncolors, u8_mask, profile;
   int comps_per_cta;         // plane-2 components of a row per CTA
   float cw[4];
+  const float* cw_scale;     // (N,) alpha scale of each block, or null
+  float rgbm;                // RGBM scale, or 0
   int* out_i;                // (R, NC, 16 + 2 W)
   float* out_e;              // (R + 1, NC)
 };
@@ -133,9 +141,9 @@ refine2_kernel(Args a) {
   const bool valid = warp < a.comps_per_cta * C && b < a.N;
   const int i = b * C + warp % C;
   PHASE_START(lane == 0 && valid);
-  const float cw[4] = {a.cw[0], a.cw[1], a.cw[2], a.cw[3]};
-  const float ls_weight =
-      (float)((double)a.cw[0] + (double)a.cw[1] + (double)a.cw[2]);
+  float cw[4];
+  block_cw(a.cw, a.cw_scale && valid ? a.cw_scale[b] : 1.f, cw);
+  const float ls_weight = rgb_weight(cw);
 
   float* tex = smem;                               // (T, 4)
   float* scale_t = tex + 4 * T;
@@ -325,7 +333,7 @@ refine2_kernel(Args a) {
 
     if (r == 0) {
       const float ep = trial_error<0>(lane, T, tex, L.dec0, L.dec1, st, w1,
-                                      w2, p2c, cw, a.u8_mask != 0);
+                                      w2, p2c, cw, a.u8_mask != 0, a.rgbm);
       if (lane == 0) a.out_e[i] = alive ? ep : kBig;
     }
     PHASE_MARK(5);
@@ -338,7 +346,7 @@ refine2_kernel(Args a) {
     }
     PHASE_MARK(6);
     const float ep = trial_error<0>(lane, T, tex, L.dec0, L.dec1, st, w1, w2,
-                                    p2c, cw, a.u8_mask != 0);
+                                    p2c, cw, a.u8_mask != 0, a.rgbm);
     PHASE_MARK(5);
     int* o = a.out_i + ((size_t)r * NC + i) * (kOut + 2 * W);
     if (lane == 0) {
@@ -367,7 +375,8 @@ extern "C" int astc_refine2(
     const int* wt_i, const int* wt_n, const int* dm_color, const int* pn,
     const int* lohi, int N, int N0, int C, int T, int W, int D, int K, int R,
     int ncolors, int u8_mask, int profile, float cw0, float cw1, float cw2,
-    float cw3, int* out_i, float* out_e, void* stream) {
+    float cw3, const float* cw_scale, float rgbm, int* out_i, float* out_e,
+    void* stream) {
   if (N < 0 || N0 < 1 || N % N0 || C < 1 || C > kMaxC || W > 63 || T > 216
       || R < 1 || ncolors < 0 || ncolors > kMaxClasses
       || (profile != 0 && profile != 1))
@@ -377,7 +386,7 @@ extern "C" int astc_refine2(
   Args a{wg1, wg2, dm, wq, alive, cq, fmt_req, p2c, texels, mean, ep0, ep1,
          tap_w, tap_i, wt_t, wt_i, wt_n, dm_color, pn, lohi, N, N0, C, T, W,
          D, K, R, ncolors, u8_mask, profile, per_cta, {cw0, cw1, cw2, cw3},
-         out_i, out_e};
+         cw_scale, rgbm, out_i, out_e};
   if (N == 0) return 0;
   const int warps = per_cta * C;
   const size_t smem =

@@ -539,35 +539,86 @@ __device__ __forceinline__ float infill_i(const Stencil& s, const int* wg,
 // lanes l and l + 16 of a warp would and adds their two sums as a warp's
 // butterfly does first, so that the result is the warp's bit for bit (the
 // other half-warp runs its own block beside it).
+//
+// rgbm > 0 selects the RGBM metric (JAX refine_pallas.py::_err_from_colors,
+// reference astcenc_decompress_symbolic.cpp:366-400): RGB compared after
+// multiplying each by its texel's M and the scale rgbm, and kBig for a
+// block where any texel's decoded M is 0. cw is the block's: the
+// config's weights, R, G and B times its alpha scale under
+// USE_ALPHA_WEIGHT (block_cw).
 template <int ES = 4, int G = 32>
 __device__ float trial_error(int lane, int T, const float* tex,
                              const float* e0t, const float* e1t,
                              const Stencil& s, const int* wg1, const int* wg2,
-                             int p2c, const float* cw, bool u8_mask) {
+                             int p2c, const float* cw, bool u8_mask,
+                             float rgbm = 0.f) {
+  bool m_zero = false;
   auto texel = [&](int t) {
     const float w1 = infill_i(s, wg1, t);
     const float w2 = p2c >= 0 ? infill_i(s, wg2, t) : w1;
-    float et = 0.f;
+    float color[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const float w = c == p2c ? w2 : w1;
-      float color = floorf((e0t[t * ES + c] * (64.f - w) + e1t[t * ES + c] * w
-                            + 32.f) / 64.f);
-      if (u8_mask) color = floorf(color / 256.f) * 257.f;
-      const float dd = fminf(fabsf(tex[t * 4 + c] - color), 1e15f);
-      et += (dd * dd) * cw[c];
+      color[c] = floorf((e0t[t * ES + c] * (64.f - w) + e1t[t * ES + c] * w
+                         + 32.f) / 64.f);
+      if (u8_mask) color[c] = floorf(color[c] / 256.f) * 257.f;
+    }
+    float et = 0.f;
+    if (rgbm > 0.f) {
+      m_zero = m_zero || color[3] == 0.f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float dec = (color[c] * color[3]) * rgbm;
+        const float org = (tex[t * 4 + c] * tex[t * 4 + 3]) * rgbm;
+        const float dd = fminf(fabsf(org - dec), 1e15f);
+        et += (dd * dd) * cw[c];
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float dd = fminf(fabsf(tex[t * 4 + c] - color[c]), 1e15f);
+        et += (dd * dd) * cw[c];
+      }
     }
     return fminf(et, kBig);
   };
   float e = 0.f;
   for (int t = lane; t < T; t += 32) e += texel(t);
-  if (G == 32) return warp_sum(e);
+  if (G == 32) {
+    e = warp_sum(e);
+    if (rgbm > 0.f && __any_sync(kFull, m_zero)) e = kBig;
+    return e;
+  }
   float e16 = 0.f;
   for (int t = lane + 16; t < T; t += 32) e16 += texel(t);
   e += e16;
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) e += __shfl_xor_sync(kFull, e, o);
+  if (rgbm > 0.f) {
+    int z = m_zero ? 1 : 0;
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) z |= __shfl_xor_sync(kFull, z, o);
+    if (z) e = kBig;
+  }
   return e;
+}
+
+// The channel weights of a block (JAX refine_pallas.py::_asr_cw): the
+// config's, R, G and B times the block's alpha scale s under
+// USE_ALPHA_WEIGHT. s = 1 (no scale) gives the config's weights exactly.
+__device__ __forceinline__ void block_cw(const float* cw, float s,
+                                         float* out) {
+  out[0] = cw[0] * s;
+  out[1] = cw[1] * s;
+  out[2] = cw[2] * s;
+  out[3] = cw[3];
+}
+
+// R + G + B of the weights, the RGB-scale line's weight: summed in double
+// and rounded once, as the plain versions sum it (ops/recompute.py).
+__device__ __forceinline__ float rgb_weight(const float* cw) {
+  return (float)((double)cw[0] + (double)cw[1] + (double)cw[2]);
 }
 
 constexpr int kMaxClasses = 8;   // parity classes of a weight grid

@@ -29,6 +29,12 @@
 // the work is a chain of dependent scalar and warp-reduction steps:
 // latency bound.
 //
+// Forms: with a non-null cw_scale (USE_ALPHA_WEIGHT; the TPU kernel's
+// has_asr) each block's R, G and B weights are the config's times its
+// scale (block_cw); rgbm > 0 selects the RGBM trial metric (trial_error).
+// A null cw_scale and rgbm 0 give the static form unchanged, and a scale
+// of 1 the static form's outputs.
+//
 // phases: setup trial_error realign output
 
 #include <cuda_runtime.h>
@@ -67,6 +73,8 @@ struct Args {
   const int* pn;             // (12, 65, 2)
   int N, C, T, W, D, K, ncolors, u8_mask;
   float cw[4];
+  const float* cw_scale;     // (N,) alpha scale of each block, or null
+  float rgbm;                // RGBM scale, or 0
   int* grid;                 // (NC, W)
   int* adjusted;             // (NC,)
   float* undec;              // (NC, T)
@@ -102,7 +110,8 @@ refine_round_kernel(Args a) {
   const int bs = valid ? bw : 0;
   const bool valid0 = __shfl_sync(kFull, (int)valid, 0) != 0;
   PHASE_START(hl == 0 && valid);
-  const float cw[4] = {a.cw[0], a.cw[1], a.cw[2], a.cw[3]};
+  float cw[4];
+  block_cw(a.cw, a.cw_scale && valid ? a.cw_scale[b0 + bw] : 1.f, cw);
 
   const float* tex = smem + bs * 4 * T;                    // (T, 4)
   int* pids = reinterpret_cast<int*>(smem + bpc * 4 * T);
@@ -157,8 +166,10 @@ refine_round_kernel(Args a) {
   PHASE_MARK(0);
 
   const float err_pre =
-      one ? trial_error<0, 16>(hl, T, tex, e0t, e1t, st, wg, wg, -1, cw, u8)
-          : trial_error<4, 16>(hl, T, tex, e0t, e1t, st, wg, wg, -1, cw, u8);
+      one ? trial_error<0, 16>(hl, T, tex, e0t, e1t, st, wg, wg, -1, cw, u8,
+                               a.rgbm)
+          : trial_error<4, 16>(hl, T, tex, e0t, e1t, st, wg, wg, -1, cw, u8,
+                               a.rgbm);
   PHASE_MARK(1);
   float err_post = err_pre;
   bool adjusted = false;
@@ -184,9 +195,10 @@ refine_round_kernel(Args a) {
                                st, pnq, wg, x, hmask);
     PHASE_MARK(2);
     err_post =
-        one ? trial_error<0, 16>(hl, T, tex, e0t, e1t, st, wg, wg, -1, cw, u8)
-            : trial_error<4, 16>(hl, T, tex, e0t, e1t, st, wg, wg, -1, cw,
-                                 u8);
+        one ? trial_error<0, 16>(hl, T, tex, e0t, e1t, st, wg, wg, -1, cw, u8,
+                                 a.rgbm)
+            : trial_error<4, 16>(hl, T, tex, e0t, e1t, st, wg, wg, -1, cw, u8,
+                                 a.rgbm);
     PHASE_MARK(1);
   }
   if (valid) {
@@ -210,14 +222,14 @@ extern "C" int astc_refine_round(
     const int* tap_w, const int* tap_i, const int* wt_t, const int* wt_i,
     const int* wt_n, const int* dm_color, const int* pn, int N, int C, int T,
     int W, int D, int K, int ncolors, int u8_mask, float cw0, float cw1,
-    float cw2, float cw3, int* grid, int* adjusted, float* undec, float* err,
-    void* stream) {
+    float cw2, float cw3, const float* cw_scale, float rgbm, int* grid,
+    int* adjusted, float* undec, float* err, void* stream) {
   if (N < 0 || C < 1 || C > kMaxC || W > 64 || T > 216 || ncolors < 0
       || ncolors > kMaxClasses)
     return (int)cudaErrorInvalidValue;
   Args a{wgrid, dm, wq, alive, ep0, ep1, texels, pot, tap_w, tap_i, wt_t,
          wt_i, wt_n, dm_color, pn, N, C, T, W, D, K, ncolors, u8_mask,
-         {cw0, cw1, cw2, cw3}, grid, adjusted, undec, err};
+         {cw0, cw1, cw2, cw3}, cw_scale, rgbm, grid, adjusted, undec, err};
   if (N == 0) return 0;
   const int bpc = kBlocksPerCta;
   const int warps = (bpc * C + 1) / 2;

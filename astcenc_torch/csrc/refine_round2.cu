@@ -28,6 +28,12 @@
 // stencil taps and writes two floats per texel: bound by device memory
 // bytes, and at the trials' sizes by launch latency.
 //
+// Forms of K6 (K7 reads no weight): with a non-null cw_scale (USE_ALPHA_WEIGHT; the TPU kernel's
+// has_asr) each block's R, G and B weights are the config's times its
+// scale (block_cw); rgbm > 0 selects the RGBM trial metric (trial_error).
+// A null cw_scale and rgbm 0 give the static form unchanged, and a scale
+// of 1 the static form's outputs.
+//
 // phases: setup trial_error realign output
 
 #include <cuda_runtime.h>
@@ -65,6 +71,8 @@ struct Args {
   int N, N0, C, T, W, D, K, ncolors, u8_mask;
   int comps_per_cta;         // plane-2 components of a row per CTA
   float cw[4];
+  const float* cw_scale;     // (N,) alpha scale of each block, or null
+  float rgbm;                // RGBM scale, or 0
   int* g1;                   // (NC, W)
   int* g2;                   // (NC, W)
   int* adjusted;             // (NC,)
@@ -94,7 +102,8 @@ refine_round2_kernel(Args a) {
   const bool valid = b < a.N;
   const int i = b * C + warp % C;
   PHASE_START(lane == 0 && valid);
-  const float cw[4] = {a.cw[0], a.cw[1], a.cw[2], a.cw[3]};
+  float cw[4];
+  block_cw(a.cw, a.cw_scale && valid ? a.cw_scale[b] : 1.f, cw);
 
   float* tex = smem;                               // (T, 4)
   float* dec0 = smem + 4 * T + warp * warp_words(T, W);
@@ -138,7 +147,7 @@ refine_round2_kernel(Args a) {
   PHASE_MARK(0);
 
   const float err_pre = trial_error<0>(lane, T, tex, dec0, dec1, st, w1, w2,
-                                       p2c, cw, u8);
+                                       p2c, cw, u8, a.rgbm);
   PHASE_MARK(1);
   float err_post = err_pre;
   bool adjusted = false;
@@ -160,7 +169,7 @@ refine_round2_kernel(Args a) {
     __syncwarp();
     PHASE_MARK(2);
     err_post = trial_error<0>(lane, T, tex, dec0, dec1, st, w1, w2, p2c, cw,
-                              u8);
+                              u8, a.rgbm);
     PHASE_MARK(1);
   }
   for (int w = lane; w < W; w += 32) {
@@ -217,8 +226,9 @@ extern "C" int astc_refine_round2(
     const float* texels, const int* tap_w, const int* tap_i, const int* wt_t,
     const int* wt_i, const int* wt_n, const int* dm_color, const int* pn,
     int N, int N0, int C, int T, int W, int D, int K, int ncolors,
-    int u8_mask, float cw0, float cw1, float cw2, float cw3, int* g1,
-    int* g2, int* adjusted, float* u1, float* u2, float* err, void* stream) {
+    int u8_mask, float cw0, float cw1, float cw2, float cw3,
+    const float* cw_scale, float rgbm, int* g1, int* g2, int* adjusted,
+    float* u1, float* u2, float* err, void* stream) {
   if (N < 0 || N0 < 1 || N % N0 || C < 1 || C > kMaxC || W > 63 || T > 216
       || ncolors < 1 || ncolors > kMaxClasses)
     return (int)cudaErrorInvalidValue;
@@ -226,7 +236,8 @@ extern "C" int astc_refine_round2(
   const int per_cta = min(comps, kMaxWarps / C);
   Args a{wg1, wg2, dm, wq, alive, p2c, ep0, ep1, texels, tap_w, tap_i, wt_t,
          wt_i, wt_n, dm_color, pn, N, N0, C, T, W, D, K, ncolors, u8_mask,
-         per_cta, {cw0, cw1, cw2, cw3}, g1, g2, adjusted, u1, u2, err};
+         per_cta, {cw0, cw1, cw2, cw3}, cw_scale, rgbm, g1, g2, adjusted, u1,
+         u2, err};
   if (N == 0) return 0;
   const int warps = per_cta * C;
   const size_t smem =

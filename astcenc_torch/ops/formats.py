@@ -29,6 +29,12 @@ _BASELINE_QUANT_ERROR = np.array([
 
 
 def _cw_parts(channel_weight, device):
+    """(RGB weights vs (N, T|P, 3), alpha weight vs (N, P), their RGB sum vs
+    (N, P)) of a static tuple or per-block (N, 4) weights (JAX
+    formats.py:31-38)."""
+    if torch.is_tensor(channel_weight):
+        cw = channel_weight
+        return cw[:, None, :3], cw[:, 3:4], sf.sum3(cw)[:, None]
     cw = torch.tensor(channel_weight, dtype=torch.float32, device=device)
     return cw[:3], cw[3], sf.sum3(cw)
 
@@ -202,8 +208,8 @@ def color_error_tables_hdr(eci, ep0, ep1, counts, channel_weight,
 
     bq = torch.from_numpy(_BASELINE_QUANT_ERROR[8 - QUANT_6:]).to(dev)
     base_q = bq * psize[..., None]                         # (N, P, 13)
-    rgb_q = ew_rgbsum * base_q * 2.0
-    rgba_q = rgb_q + cw_a * base_q * 2.0
+    rgb_q = ew_rgbsum[..., None] * base_q * 2.0
+    rgba_q = rgb_q + cw_a[..., None] * base_q * 2.0
     rre = rgb_range_error[..., None]
     adrop = eci["alpha_drop_error"][..., None]
     be_hi = torch.stack([

@@ -22,6 +22,20 @@ from .texel_sum import masked_sum
 _EPS_LINE = 1e-7
 
 
+def block_channel_weights(channel_weight, cw_scale):
+    """The channel weights of each block: the static 4-tuple, or under
+    USE_ALPHA_WEIGHT (``cw_scale`` (N,) float32, each block's largest alpha
+    over 65535) an (N, 4) float32 tensor whose R, G and B are the tuple's
+    times the block's scale (JAX trial.py:45-57; the kernels' block_cw,
+    csrc/refine_common.cuh). A scale of 1 gives the tuple's values."""
+    if cw_scale is None:
+        return channel_weight
+    cw = torch.tensor(channel_weight, dtype=torch.float32,
+                      device=cw_scale.device)
+    return torch.stack([cw_scale * cw[0], cw_scale * cw[1], cw_scale * cw[2],
+                        cw[3].expand_as(cw_scale)], 1)
+
+
 def partition_onehot(pot: torch.Tensor) -> torch.Tensor:
     """(N, T) partition ids -> (N, T, 4) float one-hot."""
     ar = torch.arange(4, dtype=pot.dtype, device=pot.device)
@@ -78,14 +92,18 @@ def ideal_colors_and_weights(texels, pmask, counts, data_min, data_max,
     """Project texels onto the per-partition dominant line (reference:
     compute_ideal_colors_and_weights_{4,3}_comp, :107-609).
 
-    channel_weight is a static 4-tuple. Returns dict: weights (N, T),
+    channel_weight is a static 4-tuple or per-block (N, 4) weights
+    (``block_channel_weights``). Returns dict: weights (N, T),
     weight_error_scale (N, T), ep0/ep1 (N, P, 4), is_constant_wes (N,).
     """
     ncomp = sum(comp_mask)
     dev = texels.device
     cm = _cm(comp_mask, dev)
-    error_weight = float(np.float32(sum(np.float32(c) * m for c, m in zip(
-        channel_weight, comp_mask))) / np.float32(ncomp))
+    if torch.is_tensor(channel_weight):
+        error_weight = (sf.sum4(channel_weight * cm) / ncomp)[:, None]
+    else:
+        error_weight = float(np.float32(sum(np.float32(c) * m for c, m in zip(
+            channel_weight, comp_mask))) / np.float32(ncomp))
     inpart = pmask.transpose(1, 2) > 0                       # (N, P, T)
     big = 1e10
     active = counts > 0

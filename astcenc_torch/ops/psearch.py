@@ -18,6 +18,10 @@ is built), each phase is one pass over its texels for all partitions, and
 the sums are reduced by shuffles in the order of a one-warp-per-candidate
 kernel.
 
+A second form takes per-block channel weights (USE_ALPHA_WEIGHT,
+``psearch_pallas.py:39-45``): each block's R, G and B weights times its
+alpha scale ``cw_scale``.
+
 The plain version is the XLA branch of ``partition_search.py:210-263``.
 """
 
@@ -30,15 +34,18 @@ import torch
 from . import _build
 from . import ideal as ideal_ops
 
-#: Launches of the CUDA kernel (the plain version does not count).
+#: Launches of the CUDA kernel (the plain version does not count), and of
+#: its per-block weights' form among them.
 launches = 0
+launches_asr = 0
 
 
 def _line_errors(tex_rep, pmask, counts_f, cw, wie: float, comp_mask):
     dev = tex_rep.device
     avg, dirv = ideal_ops.avgs_and_dirs(tex_rep, pmask, comp_mask)
     cm = torch.tensor(comp_mask, dtype=torch.float32, device=dev)
-    cwt = torch.tensor(cw, dtype=torch.float32, device=dev)
+    cwt = (cw[:, None, :] if torch.is_tensor(cw)
+           else torch.tensor(cw, dtype=torch.float32, device=dev))
     uncor_b = ideal_ops.normalize_safe(dirv, comp_mask)
     samec_b = ideal_ops.normalize_safe(avg * cm, comp_mask)
     d = (avg * uncor_b * cm).sum(-1, keepdim=True)
@@ -65,14 +72,16 @@ def _line_errors(tex_rep, pmask, counts_f, cw, wie: float, comp_mask):
 
 
 def line_errors_plain(texels, uses_alpha, top, pot_table, count_table,
-                      P: int, wie: float, cw: tuple):
+                      P: int, wie: float, cw: tuple, cw_scale=None):
     """Plain PyTorch line errors (the XLA branch of
     partition_search.py:210-263).
 
     Args:
       texels: (N, T, 4) float32; uses_alpha: (N,) int32 (0 or 1);
       top: (N, S) int32 packed partitioning indices; pot_table: (Q, T)
-      int32 partition of each texel; count_table: (Q, 4) int32.
+      int32 partition of each texel; count_table: (Q, 4) int32; cw: the
+      config's channel weights; cw_scale: (N,) float32 alpha scale of each
+      block (USE_ALPHA_WEIGHT) or None.
 
     Returns (uncor (N, S), samec (N, S)) float32.
     """
@@ -83,6 +92,9 @@ def line_errors_plain(texels, uses_alpha, top, pot_table, count_table,
     counts_f = count_table[topl].reshape(N * S, 4)[:, :P].to(torch.float32)
     tex_rep = texels[:, None].expand(N, S, T, 4).reshape(N * S, T, 4)
     pmask = ideal_ops.partition_onehot(pot)[..., :P]
+    cw = ideal_ops.block_channel_weights(cw, cw_scale)
+    if torch.is_tensor(cw):
+        cw = cw.repeat_interleave(S, 0)
     u4, s4 = _line_errors(tex_rep, pmask, counts_f, cw, wie, (1, 1, 1, 1))
     u3, s3 = _line_errors(tex_rep, pmask, counts_f, cw, wie, (1, 1, 1, 0))
     ua = (uses_alpha != 0).repeat_interleave(S)
@@ -97,7 +109,7 @@ def _lib():
         lib.astc_psearch.argtypes = ([ctypes.c_void_p] * 4
                                      + [ctypes.c_int] * 4
                                      + [ctypes.c_float] * 5
-                                     + [ctypes.c_void_p] * 3)
+                                     + [ctypes.c_void_p] * 4)
         lib.astc_error_string.restype = ctypes.c_char_p
         lib.astc_error_string.argtypes = [ctypes.c_int]
         lib._astc_typed = True
@@ -105,10 +117,11 @@ def _lib():
 
 
 def line_errors_cuda(texels, uses_alpha, top, pot_table, count_table,
-                     P: int, wie: float, cw: tuple):
+                     P: int, wie: float, cw: tuple, cw_scale=None):
     """Launch kernel K4; same arguments and outputs as the plain version
-    (the kernel counts each partition's texels itself)."""
-    global launches
+    (the kernel counts each partition's texels itself). With ``cw_scale``
+    its per-block weights' form runs."""
+    global launches, launches_asr
     N, S = top.shape
     T = texels.shape[1]
     Q = pot_table.shape[0]
@@ -119,6 +132,10 @@ def line_errors_cuda(texels, uses_alpha, top, pot_table, count_table,
     _build.check(uses_alpha, "uses_alpha", i32, (N,))
     _build.check(top, "top", i32, (N, S))
     _build.check(pot_table, "pot_table", i32, (Q, T))
+    scale = None
+    if cw_scale is not None:
+        _build.check(cw_scale, "cw_scale", f32, (N,))
+        scale = _build.ptr(cw_scale)
     out_u = torch.empty((N, S), dtype=f32, device=texels.device)
     out_s = torch.empty((N, S), dtype=f32, device=texels.device)
     lib = _lib()
@@ -126,21 +143,23 @@ def line_errors_cuda(texels, uses_alpha, top, pot_table, count_table,
         p = _build.ptr
         rc = lib.astc_psearch(
             p(texels), p(uses_alpha), p(top), p(pot_table), N, S, T, P,
-            float(wie), *(float(c) for c in cw), p(out_u), p(out_s),
+            float(wie), *(float(c) for c in cw), scale, p(out_u), p(out_s),
             ctypes.c_void_p(
                 torch.cuda.current_stream(texels.device).cuda_stream))
         if rc != 0:
             raise RuntimeError("psearch kernel launch failed: "
                                + lib.astc_error_string(rc).decode())
         launches += 1
+        launches_asr += cw_scale is not None
     return out_u, out_s
 
 
 def line_errors(texels, uses_alpha, top, pot_table, count_table, P: int,
-                wie: float, cw: tuple, use_kernel: bool = True):
+                wie: float, cw: tuple, cw_scale=None, use_kernel: bool = True):
     """Line errors: kernel K4 for CUDA tensors, the plain version for CPU
     tensors. ``use_kernel=False`` runs the plain version anywhere."""
-    args = (texels, uses_alpha, top, pot_table, count_table, P, wie, cw)
+    args = (texels, uses_alpha, top, pot_table, count_table, P, wie, cw,
+            cw_scale)
     if texels.is_cuda and use_kernel:
         return line_errors_cuda(*args)
     if not texels.is_cuda and texels.device.type != "cpu":

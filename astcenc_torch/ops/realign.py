@@ -22,7 +22,7 @@ def realign_decimated_grouped(wgrid, texels, ep0_t, ep1_t, channel_weight,
     Args:
       wgrid: (N, W) int32 unquantized grid weights 0..64.
       texels: (N, T, 4); ep0_t/ep1_t: (N, T, 4) per-texel decoded endpoints.
-      channel_weight: static 4-tuple.
+      channel_weight: static 4-tuple, or per-block (N, 4) weights.
       pn_rows: (N, 65, 2) int32 per-block prev/next unquant values.
       dec_f32: (N, T, W) per-block infill stencil; incidence: (N, T, W) 0/1.
       wvalid: (N, W) bool; color_of: (N, W) parity class per slot.
@@ -33,7 +33,10 @@ def realign_decimated_grouped(wgrid, texels, ep0_t, ep1_t, channel_weight,
 
     Returns (new_wgrid (N, W) int32, adjusted (N,) bool).
     """
-    cw = [float(c) for c in channel_weight]
+    if torch.is_tensor(channel_weight):
+        cw = [channel_weight[:, c, None] for c in range(4)]    # (N, 1) each
+    else:
+        cw = [float(c) for c in channel_weight]
     epd_t = ep1_t - ep0_t
     if plane_mask is not None:
         epd_t = torch.where(plane_mask[:, None, :], 0.0, epd_t)

@@ -39,6 +39,20 @@ def lane_sum(x, dim: int):
     return v[..., 0]
 
 
+def _weights(channel_weight, dev):
+    """(cw, ls_weight): a static tuple as a (4,) tensor and its R + G + B
+    as a float, or per-block (N, 4) weights and their (N,) R + G + B, each
+    summed in double and rounded once as the kernels sum it
+    (csrc/refine_common.cuh::rgb_weight)."""
+    if torch.is_tensor(channel_weight):
+        cw = channel_weight
+        d = cw.to(torch.float64)
+        return cw, ((d[:, 0] + d[:, 1]) + d[:, 2]).to(torch.float32)
+    cw = torch.tensor(channel_weight, dtype=torch.float32, device=dev)
+    return cw, float(channel_weight[0] + channel_weight[1]
+                     + channel_weight[2])
+
+
 def _psum(pmask, x):
     """Per-partition texel sum: (N, T, P), (N, T[, C]) -> (N, P[, C])."""
     if x.dim() == 2:
@@ -54,16 +68,16 @@ def recompute_ideal_colors_1plane(texels, pmask, counts, undec_weights,
     Args:
       texels: (N, T, 4); pmask: (N, T, P) one-hot; counts: (N, P).
       undec_weights: (N, T) infilled weights in [0, 1].
-      channel_weight: static 4-tuple.
+      channel_weight: static 4-tuple, or per-block (N, 4) weights.
       ep0_in/ep1_in: (N, P, 4) previous endpoints, kept where a solve fails.
       is_hdr: also compute the RGBO vector of FMT_HDR_RGB_SCALE.
 
     Returns dict: ep0, ep1, rgbs (N, P, 4), and rgbo (N, P, 4) if is_hdr.
     """
-    dev = texels.device
-    cw = torch.tensor(channel_weight, dtype=torch.float32, device=dev)
-    ls_weight = float(channel_weight[0] + channel_weight[1]
-                      + channel_weight[2])
+    cw, ls_weight = _weights(channel_weight, texels.device)
+    if cw.dim() == 2:
+        cw = cw[:, None, :]                                   # (N, 1, 4)
+        ls_weight = ls_weight[:, None]                        # (N, 1)
     idx = undec_weights
     om = 1.0 - idx
 
@@ -196,15 +210,14 @@ def recompute_ideal_colors_2planes(texels, undec_w1, undec_w2, p2c,
     Args:
       texels: (N, T, 4); undec_w1/undec_w2: (N, T) infilled weights.
       p2c: (N,) plane-2 component; data_mean: (N, 4) block mean.
+      channel_weight: static 4-tuple, or per-block (N, 4) weights.
       ep0_in/ep1_in: (N, 4) previous endpoints, kept where a solve fails.
       is_hdr: also compute the RGBO vector of FMT_HDR_RGB_SCALE.
 
     Returns dict: ep0, ep1, rgbs (N, 4), and rgbo (N, 4) if is_hdr.
     """
     dev = texels.device
-    cw = torch.tensor(channel_weight, dtype=torch.float32, device=dev)
-    ls_weight = float(channel_weight[0] + channel_weight[1]
-                      + channel_weight[2])
+    cw, ls_weight = _weights(channel_weight, dev)
     N, T, _ = texels.shape
     p2_mask = torch.arange(4, device=dev)[None, :] == p2c[:, None]
 

@@ -44,6 +44,13 @@ the warp. The work is a long chain of dependent scalar and warp-reduction
 steps per lane: the kernels are latency bound, and rely on many resident
 warps to hide that latency.
 
+Each kernel has a form with per-block channel weights (USE_ALPHA_WEIGHT:
+``cw_scale``, each block's alpha scale, times the config's R, G and B
+weights, as ``refine_pallas.py::_asr_cw`` takes them; a null scale is the
+static form) and K2, K3, K5 and K6 one with the RGBM trial metric
+(``rgbm``, the M scale; ``refine_pallas.py::_err_from_colors``). K7 reads
+no weight: its one form serves both.
+
 The plain versions are the XLA refine loops of ``trial.py:660-721``
 (1 plane) and ``:1227-1288`` (2 planes), built on ``recompute``,
 ``color_pack`` and ``realign``. They are also the encoder's path when the
@@ -75,20 +82,58 @@ launches2 = 0
 launches_round1 = 0
 launches_round2 = 0
 launches_boot2 = 0
+#: Launches of the weighted and RGBM forms, (kernel, form) -> count, form
+#: "asr" (per-block weights), "rgbm" or "asr+rgbm", beside the counts
+#: above (which count every launch of a kernel).
+form_launches = {}
 
 _BIG = 1e30
 
 
-def _color_err(texels, color, cw, u8_mask: bool):
+def _count_form(kernel: str, cw_scale, rgbm: float) -> None:
+    parts = [name for name, on in (("asr", cw_scale is not None),
+                                   ("rgbm", rgbm > 0.0)) if on]
+    if parts:
+        key = (kernel, "+".join(parts))
+        form_launches[key] = form_launches.get(key, 0) + 1
+
+
+def lane_cw(cw, cw_scale, C: int):
+    """Channel weights of each lane (lane i of block i // C): the static
+    tuple, or (NC, 4) per-block weights (``ideal.block_channel_weights``)."""
+    w = ideal_ops.block_channel_weights(cw, cw_scale)
+    return w.repeat_interleave(C, 0) if torch.is_tensor(w) else w
+
+
+def _chan(cw, c):
+    """Weight of channel c against (N, T) terms."""
+    return cw[:, c, None] if torch.is_tensor(cw) else float(cw[c])
+
+
+def _color_err(texels, color, cw, u8_mask: bool, rgbm: float = 0.0):
     """Summed trial error, in the kernels' order: channels in sequence per
-    texel, texels by ``lane_sum`` (csrc/refine_common.cuh::trial_error)."""
+    texel, texels by ``lane_sum`` (csrc/refine_common.cuh::trial_error).
+    ``rgbm`` > 0: the RGBM metric (JAX trial.py:186-205), RGB compared
+    after multiplying each by its texel's M and the scale, and
+    ERROR_CALC_DEFAULT where any texel's decoded M is 0."""
     if u8_mask:
         color = torch.floor(color / 256.0) * 257.0
+    if rgbm > 0.0:
+        m = color[..., 3]
+        err_t = None
+        for c in range(3):
+            dec = color[..., c] * m * rgbm
+            org = texels[..., c] * texels[..., 3] * rgbm
+            dd = torch.clamp((org - dec).abs(), max=1e15)
+            term = dd * dd * _chan(cw, c)
+            err_t = term if err_t is None else err_t + term
+        err = recompute_ops.lane_sum(torch.clamp(err_t, max=1e30), -1)
+        return torch.where((m == 0.0).any(-1), _BIG, err)
     d = torch.clamp((texels - color).abs(), max=1e15)
     dd = d * d
-    err_t = dd[..., 0] * float(cw[0])
+    err_t = dd[..., 0] * _chan(cw, 0)
     for c in range(1, 4):
-        err_t = err_t + dd[..., c] * float(cw[c])
+        err_t = err_t + dd[..., c] * _chan(cw, c)
     return recompute_ops.lane_sum(torch.clamp(err_t, max=1e30), -1)
 
 
@@ -97,16 +142,17 @@ def _infill(Mint, wgrid):
             .to(torch.int32) >> 4).to(torch.float32)
 
 
-def trial_error_1plane(texels, wgrid, Mint, ep0_t, ep1_t, cw, u8_mask: bool):
+def trial_error_1plane(texels, wgrid, Mint, ep0_t, ep1_t, cw, u8_mask: bool,
+                       rgbm: float = 0.0):
     """compute_symbolic_block_difference_1plane for per-texel endpoints
     (reference astcenc_decompress_symbolic.cpp:407-618). (N,)."""
     w = _infill(Mint, wgrid)[..., None]
     color = torch.floor((ep0_t * (64.0 - w) + ep1_t * w + 32.0) / 64.0)
-    return _color_err(texels, color, cw, u8_mask)
+    return _color_err(texels, color, cw, u8_mask, rgbm)
 
 
 def trial_error_2plane(texels, wgrid1, wgrid2, p2c, Mint, ep0, ep1, cw,
-                       u8_mask: bool):
+                       u8_mask: bool, rgbm: float = 0.0):
     """compute_symbolic_block_difference_2plane, 1 partition (port of
     ``astcenc_tpu/codec/trial.py:238``); ep0/ep1 (N, 4) decoded. (N,)."""
     w1 = _infill(Mint, wgrid1)
@@ -116,7 +162,7 @@ def trial_error_2plane(texels, wgrid1, wgrid2, p2c, Mint, ep0, ep1, cw,
     w = torch.where(use2, w2[..., None], w1[..., None])
     color = torch.floor((ep0[:, None, :] * (64.0 - w)
                          + ep1[:, None, :] * w + 32.0) / 64.0)
-    return _color_err(texels, color, cw, u8_mask)
+    return _color_err(texels, color, cw, u8_mask, rgbm)
 
 
 def _lane_tables(pt, dm, wq):
@@ -164,7 +210,8 @@ def pack_partitions(pack, cq, cqm, pc: int):
 
 def trial1_refine_plain(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
                         pot, ep0, ep1, C: int, R: int, u8_mask: bool,
-                        cw: tuple, profile: int, use_kernel: bool = False):
+                        cw: tuple, profile: int, cw_scale=None,
+                        rgbm: float = 0.0, use_kernel: bool = False):
     """R refinement rounds for N*C lanes of a 1-plane trial, pc = 1..4.
 
     Args:
@@ -173,6 +220,9 @@ def trial1_refine_plain(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
       fmt_req: (NC, pc) int32; alive: (NC,) bool; texels: (N, T, 4)
       float32; pot: (N, T) int32 partition of each texel; ep0/ep1:
       (N, pc, 4) ideal endpoints; lane i belongs to block i // C.
+      cw: the config's channel weights; cw_scale: (N,) float32 alpha scale
+      of each block (USE_ALPHA_WEIGHT) or None; rgbm: the RGBM scale of
+      the trial error, or 0.
       use_kernel: realign lookups on K8 and packs on K9 for CUDA tensors.
 
     Returns dict fmt (R, NC, 4), vals (R, NC, 4, 8), useq (R, NC), match
@@ -187,6 +237,7 @@ def trial1_refine_plain(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
     counts = pmask.sum(1)
     e0 = ep0.repeat_interleave(C, 0)
     e1 = ep1.repeat_interleave(C, 0)
+    cw = lane_cw(cw, cw_scale, C)
     Mint, Mf32, incid, wvalid, color_of, pn_rows = _lane_tables(pt, dm, wq)
     big = torch.tensor(_BIG, device=dev)
     i32 = torch.int32
@@ -216,12 +267,13 @@ def trial1_refine_plain(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
         ep1_t = torch.einsum("ntp,npc->ntc", pmask, e1i)
         if r == 0:
             err_pre = torch.where(alive, trial_error_1plane(
-                tex, wgrid, Mint, ep0_t, ep1_t, cw, u8_mask), big)
+                tex, wgrid, Mint, ep0_t, ep1_t, cw, u8_mask, rgbm), big)
         new_w, adjusted = realign_ops.realign_decimated_grouped(
             wgrid, tex, ep0_t, ep1_t, cw, pn_rows, Mf32, incid, wvalid,
             color_of, pt.ncolors, use_kernel=use_kernel)
         wgrid = torch.where(alive[:, None], new_w, wgrid)
-        post = trial_error_1plane(tex, wgrid, Mint, ep0_t, ep1_t, cw, u8_mask)
+        post = trial_error_1plane(tex, wgrid, Mint, ep0_t, ep1_t, cw, u8_mask,
+                                  rgbm)
         out["err_post"].append(torch.where(alive, post, big))
         alive = alive & adjusted
         out["fmt"].append(fmt4)
@@ -237,6 +289,7 @@ def trial1_refine_plain(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
 def trial2_refine_plain(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
                         texels, data_mean, ep0, ep1, C: int, R: int,
                         u8_mask: bool, cw: tuple, profile: int,
+                        cw_scale=None, rgbm: float = 0.0,
                         use_kernel: bool = False):
     """R refinement rounds for N*C lanes of a 2-plane, 1-partition trial.
 
@@ -246,8 +299,9 @@ def trial2_refine_plain(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
       plane-2 component; texels: (N0, T, 4) and data_mean (N0, 4), where
       block b reads texel row b % N0 (the four plane-2 components of a
       block are four blocks); ep0/ep1: (N, 4) ideal endpoints; lane i
-      belongs to block i // C; use_kernel: realign lookups on K8 and packs
-      on K9 for CUDA tensors.
+      belongs to block i // C; cw_scale: (N,) alpha scale of each block or
+      None, and rgbm, as for ``trial1_refine_plain``; use_kernel: realign
+      lookups on K8 and packs on K9 for CUDA tensors.
 
     Returns dict fmt (R, NC), vals (R, NC, 8), w1post/w2post (R, NC, W)
     int32; err_pre (NC,) and err_post (R, NC) float32, alive-masked.
@@ -262,6 +316,7 @@ def trial2_refine_plain(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
     p2lanes = torch.arange(4, device=dev)[None, :] == p2c_f[:, None]
     e0 = ep0.repeat_interleave(C, 0)
     e1 = ep1.repeat_interleave(C, 0)
+    cw = lane_cw(cw, cw_scale, C)
     Mint, Mf32, incid, wvalid, color_of, pn_rows = _lane_tables(pt, dm, wq)
     big = torch.tensor(_BIG, device=dev)
     wg1, wg2 = wg1_0, wg2_0
@@ -279,7 +334,7 @@ def trial2_refine_plain(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
         e0i, e1i = e0i[:, 0], e1i[:, 0]
         if r == 0:
             err_pre = torch.where(alive, trial_error_2plane(
-                tex, wg1, wg2, p2c_f, Mint, e0i, e1i, cw, u8_mask), big)
+                tex, wg1, wg2, p2c_f, Mint, e0i, e1i, cw, u8_mask, rgbm), big)
         ep0_t = e0i[:, None, :].expand_as(tex)
         ep1_t = e1i[:, None, :].expand_as(tex)
         nw1, adj1 = realign_ops.realign_decimated_grouped(
@@ -291,7 +346,7 @@ def trial2_refine_plain(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
         wg1 = torch.where(alive[:, None], nw1, wg1)
         wg2 = torch.where(alive[:, None], nw2, wg2)
         post = trial_error_2plane(tex, wg1, wg2, p2c_f, Mint, e0i, e1i, cw,
-                                  u8_mask)
+                                  u8_mask, rgbm)
         out["err_post"].append(torch.where(alive, post, big))
         alive = alive & (adj1 | adj2)
         out["fmt"].append(fmt)
@@ -308,12 +363,11 @@ def _lib(name):
     if not getattr(lib, "_astc_typed", False):
         fn = getattr(lib, "astc_" + name)
         fn.restype = ctypes.c_int
-        if name == "refine":
-            fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 11
-                           + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 3)
-        else:
-            fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 11
-                           + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 3)
+        nptr = 19 if name == "refine" else 20
+        fn.argtypes = ([ctypes.c_void_p] * nptr + [ctypes.c_int] * 11
+                       + [ctypes.c_float] * 4
+                       + [ctypes.c_void_p, ctypes.c_float]
+                       + [ctypes.c_void_p] * 3)
         lib.astc_error_string.restype = ctypes.c_char_p
         lib.astc_error_string.argtypes = [ctypes.c_int]
         lib._astc_typed = True
@@ -333,6 +387,14 @@ def _check_common(pt, W, T, R, profile, dev):
     return k
 
 
+def _scale_ptr(cw_scale, n: int):
+    """The alpha scale operand of a launch: null for the static form."""
+    if cw_scale is None:
+        return None
+    _build.check(cw_scale, "cw_scale", torch.float32, (n,))
+    return _build.ptr(cw_scale)
+
+
 def _raise_on(lib, rc, what):
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: "
@@ -341,7 +403,8 @@ def _raise_on(lib, rc, what):
 
 def trial1_refine_cuda(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
                        pot, ep0, ep1, C: int, R: int, u8_mask: bool,
-                       cw: tuple, profile: int):
+                       cw: tuple, profile: int, cw_scale=None,
+                       rgbm: float = 0.0):
     """Launch kernel K2; same arguments and outputs as the plain version."""
     global launches
     NC, W = wgrid0.shape
@@ -365,6 +428,7 @@ def trial1_refine_cuda(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
     _build.check(pot, "pot", i32, (N, T))
     _build.check(ep0, "ep0", f32, (N, pc, 4))
     _build.check(ep1, "ep1", f32, (N, pc, 4))
+    scale = _scale_ptr(cw_scale, N)
     out_i = torch.empty((R, NC, 40 + W), dtype=i32, device=dev)
     out_e = torch.empty((R + 1, NC), dtype=f32, device=dev)
     lib = _lib("refine")
@@ -376,9 +440,11 @@ def trial1_refine_cuda(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
             p(k.wt_t), p(k.wt_i), p(k.wt_n), p(k.dm_color), p(k.pn),
             p(k.lohi), N, C, T, W, k.wt_n.shape[0], k.wt_t.shape[2], R, pc,
             pt.ncolors, int(u8_mask), profile, *(float(c) for c in cw),
-            p(out_i), p(out_e), ctypes.c_void_p(_build.stream(dev.index)))
+            scale, float(rgbm), p(out_i), p(out_e),
+            ctypes.c_void_p(_build.stream(dev.index)))
         _raise_on(lib, rc, "refine")
         launches += 1
+        _count_form("K2", cw_scale, rgbm)
     return {"fmt": out_i[..., 0:4], "vals": out_i[..., 4:36].reshape(
                 R, NC, 4, 8),
             "useq": out_i[..., 36], "match": out_i[..., 37] != 0,
@@ -388,7 +454,8 @@ def trial1_refine_cuda(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
 
 def trial2_refine_cuda(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
                        texels, data_mean, ep0, ep1, C: int, R: int,
-                       u8_mask: bool, cw: tuple, profile: int):
+                       u8_mask: bool, cw: tuple, profile: int,
+                       cw_scale=None, rgbm: float = 0.0):
     """Launch kernel K3; same arguments and outputs as the plain version."""
     global launches2
     NC, W = wg1_0.shape
@@ -415,6 +482,7 @@ def trial2_refine_cuda(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
     _build.check(data_mean, "data_mean", f32, (N0, 4))
     _build.check(ep0, "ep0", f32, (N, 4))
     _build.check(ep1, "ep1", f32, (N, 4))
+    scale = _scale_ptr(cw_scale, N)
     out_i = torch.empty((R, NC, 16 + 2 * W), dtype=i32, device=dev)
     out_e = torch.empty((R + 1, NC), dtype=f32, device=dev)
     lib = _lib("refine2")
@@ -426,10 +494,11 @@ def trial2_refine_cuda(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
             p(k.tap_i), p(k.wt_t), p(k.wt_i), p(k.wt_n), p(k.dm_color),
             p(k.pn), p(k.lohi), N, N0, C, T, W, k.wt_n.shape[0],
             k.wt_t.shape[2], R, pt.ncolors, int(u8_mask), profile,
-            *(float(c) for c in cw), p(out_i), p(out_e),
+            *(float(c) for c in cw), scale, float(rgbm), p(out_i), p(out_e),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
         _raise_on(lib, rc, "refine2")
         launches2 += 1
+        _count_form("K3", cw_scale, rgbm)
     return {"fmt": out_i[..., 0], "vals": out_i[..., 1:9],
             "w1post": out_i[..., 16:16 + W], "w2post": out_i[..., 16 + W:],
             "err_pre": out_e[0], "err_post": out_e[1:]}
@@ -444,7 +513,8 @@ def trial2_refine_cuda(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
 
 def refine_round_1plane_plain(pt, wgrid, dm, wq, alive, ep0, ep1, texels,
                               pot, C: int, ncolors: int, u8_mask: bool,
-                              cw: tuple, use_kernel: bool = False):
+                              cw: tuple, cw_scale=None, rgbm: float = 0.0,
+                              use_kernel: bool = False):
     """One 1-plane round (JAX trial.py:675-713 without the refit and
     pack) for NC lanes; lane i belongs to block i // C.
 
@@ -453,7 +523,9 @@ def refine_round_1plane_plain(pt, wgrid, dm, wq, alive, ep0, ep1, texels,
       ep0/ep1: (NC, 4, 4) int32 decoded endpoints by partition and
       channel; texels: (N, T, 4) float32; pot: (N, T) int32 partition of
       each texel; ncolors: parity classes to realign (0: bootstrap);
-      use_kernel: the realign's lookups through K8 for CUDA tensors.
+      cw_scale: (N,) alpha scale of each block or None, and rgbm, as for
+      ``trial1_refine_plain``; use_kernel: the realign's lookups through
+      K8 for CUDA tensors.
 
     Returns dict grid (NC, W) int32 (realigned where alive), adjusted
     (NC,) bool, undec (NC, T) float32 infill of grid, err_pre and
@@ -465,8 +537,10 @@ def refine_round_1plane_plain(pt, wgrid, dm, wq, alive, ep0, ep1, texels,
         -1, -1, 4)
     ep0_t = torch.gather(ep0.to(torch.float32), 1, idx)
     ep1_t = torch.gather(ep1.to(torch.float32), 1, idx)
+    cw = lane_cw(cw, cw_scale, C)
     Mint, Mf32, incid, wvalid, color_of, pn_rows = _lane_tables(pt, dm, wq)
-    err_pre = trial_error_1plane(tex, wgrid, Mint, ep0_t, ep1_t, cw, u8_mask)
+    err_pre = trial_error_1plane(tex, wgrid, Mint, ep0_t, ep1_t, cw, u8_mask,
+                                 rgbm)
     grid, err_post = wgrid, err_pre
     adjusted = torch.zeros_like(alive)
     if ncolors:
@@ -476,7 +550,7 @@ def refine_round_1plane_plain(pt, wgrid, dm, wq, alive, ep0, ep1, texels,
         grid = torch.where(alive[:, None], new_w, wgrid)
         adjusted = adj & alive
         err_post = trial_error_1plane(tex, grid, Mint, ep0_t, ep1_t, cw,
-                                      u8_mask)
+                                      u8_mask, rgbm)
     return {"grid": grid, "adjusted": adjusted, "err_pre": err_pre,
             "err_post": err_post,
             "undec": torch.einsum("ntw,nw->nt", Mf32,
@@ -485,7 +559,8 @@ def refine_round_1plane_plain(pt, wgrid, dm, wq, alive, ep0, ep1, texels,
 
 def refine_round_2plane_plain(pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1,
                               texels, C: int, ncolors: int, u8_mask: bool,
-                              cw: tuple, use_kernel: bool = False):
+                              cw: tuple, cw_scale=None, rgbm: float = 0.0,
+                              use_kernel: bool = False):
     """One 2-plane, 1-partition round (JAX trial.py:1237-1282 without the
     refit and pack), or with ncolors == 0 the bootstrap infills alone.
 
@@ -493,8 +568,10 @@ def refine_round_2plane_plain(pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1,
       wg1/wg2: (NC, W) int32 grids of both planes; dm/wq: (NC,) int32;
       alive: (NC,) bool; p2c: (N,) int32 plane-2 component per block;
       ep0/ep1: (NC, 4) int32 decoded endpoints; texels: (N0, T, 4), block
-      b reading row b % N0; lane i belongs to block i // C; use_kernel:
-      the realign's lookups through K8 for CUDA tensors.
+      b reading row b % N0; lane i belongs to block i // C; cw_scale:
+      (N,) alpha scale of each block or None, and rgbm, as for
+      ``trial1_refine_plain``; use_kernel: the realign's lookups through
+      K8 for CUDA tensors.
 
     Returns dict grid1/grid2 (NC, W), adjusted (NC,) bool, undec1/undec2
     (NC, T) and err_pre/err_post (NC,); the bootstrap returns undec1 and
@@ -512,9 +589,10 @@ def refine_round_2plane_plain(pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1,
     tex = texels[rows].repeat_interleave(C, 0)
     p2c_f = p2c.repeat_interleave(C, 0)
     p2lanes = torch.arange(4, device=tex.device)[None, :] == p2c_f[:, None]
+    cw = lane_cw(cw, cw_scale, C)
     e0, e1 = ep0.to(torch.float32), ep1.to(torch.float32)
     err_pre = trial_error_2plane(tex, wg1, wg2, p2c_f, Mint, e0, e1, cw,
-                                 u8_mask)
+                                 u8_mask, rgbm)
     ep0_t = e0[:, None, :].expand_as(tex)
     ep1_t = e1[:, None, :].expand_as(tex)
     nw1, adj1 = realign_ops.realign_decimated_grouped(
@@ -529,7 +607,7 @@ def refine_round_2plane_plain(pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1,
     return {"grid1": nw1, "grid2": nw2, "adjusted": (adj1 | adj2) & alive,
             "undec1": undec(nw1), "undec2": undec(nw2), "err_pre": err_pre,
             "err_post": trial_error_2plane(tex, nw1, nw2, p2c_f, Mint, e0, e1,
-                                           cw, u8_mask)}
+                                           cw, u8_mask, rgbm)}
 
 
 def _round_lib(name):
@@ -539,12 +617,14 @@ def _round_lib(name):
             lib.astc_refine_round.restype = ctypes.c_int
             lib.astc_refine_round.argtypes = (
                 [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8
-                + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 5)
+                + [ctypes.c_float] * 4 + [ctypes.c_void_p, ctypes.c_float]
+                + [ctypes.c_void_p] * 5)
         else:
             lib.astc_refine_round2.restype = ctypes.c_int
             lib.astc_refine_round2.argtypes = (
                 [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9
-                + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 7)
+                + [ctypes.c_float] * 4 + [ctypes.c_void_p, ctypes.c_float]
+                + [ctypes.c_void_p] * 7)
             lib.astc_refine_boot2.restype = ctypes.c_int
             lib.astc_refine_boot2.argtypes = (
                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
@@ -570,7 +650,7 @@ def _stream(dev):
 
 def refine_round_1plane_cuda(pt, wgrid, dm, wq, alive, ep0, ep1, texels,
                              pot, C: int, ncolors: int, u8_mask: bool,
-                             cw: tuple):
+                             cw: tuple, cw_scale=None, rgbm: float = 0.0):
     """Launch kernel K5; same arguments and outputs as the plain version."""
     global launches_round1
     NC, W = wgrid.shape
@@ -588,6 +668,7 @@ def refine_round_1plane_cuda(pt, wgrid, dm, wq, alive, ep0, ep1, texels,
     _build.check(ep1, "ep1", i32, (NC, 4, 4))
     _build.check(texels, "texels", f32, (N, T, 4))
     _build.check(pot, "pot", i32, (N, T))
+    scale = _scale_ptr(cw_scale, N)
     grid = torch.empty((NC, W), dtype=i32, device=dev)
     adjusted = torch.empty((NC,), dtype=i32, device=dev)
     undec = torch.empty((NC, T), dtype=f32, device=dev)
@@ -600,19 +681,20 @@ def refine_round_1plane_cuda(pt, wgrid, dm, wq, alive, ep0, ep1, texels,
             p(pot), p(k.tap_w), p(k.tap_i), p(k.wt_t), p(k.wt_i), p(k.wt_n),
             p(k.dm_color), p(k.pn), N, C, T, W, k.wt_n.shape[0],
             k.wt_t.shape[2], ncolors, int(u8_mask),
-            *(float(c) for c in cw), p(grid), p(adjusted), p(undec), p(err),
-            _stream(dev))
+            *(float(c) for c in cw), scale, float(rgbm), p(grid), p(adjusted),
+            p(undec), p(err), _stream(dev))
         _raise_on(lib, rc, "refine_round")
         launches_round1 += 1
+        _count_form("K5", cw_scale, rgbm)
     return {"grid": grid, "adjusted": adjusted != 0, "undec": undec,
             "err_pre": err[0], "err_post": err[1]}
 
 
 def refine_round_2plane_cuda(pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1,
                              texels, C: int, ncolors: int, u8_mask: bool,
-                             cw: tuple):
+                             cw: tuple, cw_scale=None, rgbm: float = 0.0):
     """Launch kernel K6 (ncolors > 0) or K7 (ncolors == 0); same arguments
-    and outputs as the plain version."""
+    and outputs as the plain version. K7 reads no weight."""
     global launches_round2, launches_boot2
     NC, W = wg1.shape
     N0, T, _ = texels.shape
@@ -638,6 +720,7 @@ def refine_round_2plane_cuda(pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1,
                 k.wt_n.shape[0], p(u1), p(u2), _stream(dev))
             _raise_on(lib, rc, "refine_boot2")
             launches_boot2 += 1
+            _count_form("K7", cw_scale, rgbm)
         return {"undec1": u1, "undec2": u2}
     _build.check(wq, "wq", i32, (NC,))
     _build.check(alive, "alive", torch.bool, (NC,))
@@ -645,6 +728,7 @@ def refine_round_2plane_cuda(pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1,
     _build.check(ep0, "ep0", i32, (NC, 4))
     _build.check(ep1, "ep1", i32, (NC, 4))
     _build.check(texels, "texels", f32, (N0, T, 4))
+    scale = _scale_ptr(cw_scale, N)
     g1 = torch.empty((NC, W), dtype=i32, device=dev)
     g2 = torch.empty((NC, W), dtype=i32, device=dev)
     adjusted = torch.empty((NC,), dtype=i32, device=dev)
@@ -655,66 +739,75 @@ def refine_round_2plane_cuda(pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1,
             p(texels), p(k.tap_w), p(k.tap_i), p(k.wt_t), p(k.wt_i),
             p(k.wt_n), p(k.dm_color), p(k.pn), N, N0, C, T, W,
             k.wt_n.shape[0], k.wt_t.shape[2], ncolors, int(u8_mask),
-            *(float(c) for c in cw), p(g1), p(g2), p(adjusted), p(u1), p(u2),
-            p(err), _stream(dev))
+            *(float(c) for c in cw), scale, float(rgbm), p(g1), p(g2),
+            p(adjusted), p(u1), p(u2), p(err), _stream(dev))
         _raise_on(lib, rc, "refine_round2")
         launches_round2 += 1
+        _count_form("K6", cw_scale, rgbm)
     return {"grid1": g1, "grid2": g2, "adjusted": adjusted != 0,
             "undec1": u1, "undec2": u2, "err_pre": err[0],
             "err_post": err[1]}
 
 
-def _route(texels, use_kernel, cuda_fn, plain_fn, args, gathers):
+def _route(texels, use_kernel, cuda_fn, plain_fn, args, gathers, cw_scale,
+           rgbm):
+    kw = {"cw_scale": cw_scale, "rgbm": float(rgbm)}
     if texels.is_cuda and use_kernel:
-        return cuda_fn(*args)
+        return cuda_fn(*args, **kw)
     if not texels.is_cuda and texels.device.type != "cpu":
         raise ValueError(f"unsupported device {texels.device}")
-    return plain_fn(*args, use_kernel=gathers)
+    return plain_fn(*args, **kw, use_kernel=gathers)
 
 
 def trial1_refine(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels, pot,
                   ep0, ep1, C: int, R: int, u8_mask: bool, cw: tuple,
-                  profile: int, use_kernel: bool = True,
-                  gathers: bool = False):
+                  profile: int, cw_scale=None, rgbm: float = 0.0,
+                  use_kernel: bool = True, gathers: bool = False):
     """1-plane refinement rounds: kernel K2 for CUDA tensors, the plain
     version for CPU tensors. ``use_kernel=False`` runs the plain version
     anywhere; ``gathers`` sends the plain version's lookups to K8 and its
-    packs to K9 for CUDA tensors (the refine-off path)."""
+    packs to K9 for CUDA tensors (the refine-off path). ``cw_scale`` (N,)
+    selects the per-block weights' form, ``rgbm`` > 0 the RGBM metric."""
     return _route(texels, use_kernel, trial1_refine_cuda, trial1_refine_plain,
                   (pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels, pot,
-                   ep0, ep1, C, R, u8_mask, cw, profile), gathers)
+                   ep0, ep1, C, R, u8_mask, cw, profile), gathers, cw_scale,
+                  rgbm)
 
 
 def trial2_refine(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c, texels,
                   data_mean, ep0, ep1, C: int, R: int, u8_mask: bool,
-                  cw: tuple, profile: int, use_kernel: bool = True,
-                  gathers: bool = False):
+                  cw: tuple, profile: int, cw_scale=None, rgbm: float = 0.0,
+                  use_kernel: bool = True, gathers: bool = False):
     """2-plane refinement rounds: kernel K3 for CUDA tensors, the plain
-    version for CPU tensors; ``gathers`` as for ``trial1_refine``."""
+    version for CPU tensors; the rest as for ``trial1_refine``."""
     return _route(texels, use_kernel, trial2_refine_cuda, trial2_refine_plain,
                   (pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c, texels,
-                   data_mean, ep0, ep1, C, R, u8_mask, cw, profile), gathers)
+                   data_mean, ep0, ep1, C, R, u8_mask, cw, profile), gathers,
+                  cw_scale, rgbm)
 
 
 def refine_round_1plane(pt, wgrid, dm, wq, alive, ep0, ep1, texels, pot,
                         C: int, ncolors: int, u8_mask: bool, cw: tuple,
+                        cw_scale=None, rgbm: float = 0.0,
                         use_kernel: bool = True, gathers: bool = False):
     """One 1-plane round: kernel K5 for CUDA tensors, the plain version for
     CPU tensors; ``gathers`` sends the plain version's realign lookups to
-    K8 for CUDA tensors."""
+    K8 for CUDA tensors; ``cw_scale`` and ``rgbm`` as for
+    ``trial1_refine``."""
     return _route(texels, use_kernel, refine_round_1plane_cuda,
                   refine_round_1plane_plain,
                   (pt, wgrid, dm, wq, alive, ep0, ep1, texels, pot, C,
-                   ncolors, u8_mask, cw), gathers)
+                   ncolors, u8_mask, cw), gathers, cw_scale, rgbm)
 
 
 def refine_round_2plane(pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1, texels,
                         C: int, ncolors: int, u8_mask: bool, cw: tuple,
+                        cw_scale=None, rgbm: float = 0.0,
                         use_kernel: bool = True, gathers: bool = False):
     """One 2-plane round: kernel K6 (K7 for the bootstrap, ncolors == 0)
-    for CUDA tensors, the plain version for CPU tensors; ``gathers`` as
-    for ``refine_round_1plane``."""
+    for CUDA tensors, the plain version for CPU tensors; the rest as for
+    ``refine_round_1plane``."""
     return _route(texels, use_kernel, refine_round_2plane_cuda,
                   refine_round_2plane_plain,
                   (pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1, texels, C,
-                   ncolors, u8_mask, cw), gathers)
+                   ncolors, u8_mask, cw), gathers, cw_scale, rgbm)

@@ -11,7 +11,10 @@ its own (a seeded sinusoid with noise, as a mask or a detail map packed in
 alpha would be): blocks there have decorrelated channels, which the
 encoder's 2-plane stage (1 partition, alpha on its own weight plane) wins.
 ``synthetic_hdr_image`` is the float16 HDR counterpart; ``alpha_holes``
-cuts seeded transparent regions into an image's alpha. ``pack_batch``
+cuts seeded transparent regions into an image's alpha; ``rgbm_image``
+stores an HDR image as an RGBM texture; ``synthetic_volume`` is a 3D
+texture (LDR or HDR); ``nonfinite_image`` holds a NaN or an infinity in
+one texel of each 4x4 block. ``pack_batch``
 makes the colour pack's inputs: seeded endpoint pairs, requested formats
 and quant levels, with the pack's corner cases added on request.
 """
@@ -159,6 +162,123 @@ def footprint_image(kind: str, height: int, width: int,
     elif kind != "ldr":
         raise ValueError(f"unknown fixture image kind {kind!r}")
     return img
+
+
+def rgbm_image(height: int, width: int, seed: int = 0,
+               m_scale: float = 5.0, dark_spots: int = 3) -> np.ndarray:
+    """(height, width, 4) uint8 RGBM texture, as engines store a lightmap
+    in LDR: the square root of ``synthetic_hdr_image`` of ``seed`` (half
+    its stops) brought to the range [0, m_scale], its 99th percentile at
+    0.8 m_scale; then M = the
+    texel's largest channel over m_scale rounded up to a step of 1/255,
+    and RGB = colour / (M m_scale). ``dark_spots`` seeded 3x3 squares are
+    black with M = 0 or 1/255, so that the encoder meets texels whose M
+    decodes to zero."""
+    hdr = synthetic_hdr_image(height, width, seed).astype(np.float32)[..., :3]
+    rgb = np.sqrt(hdr / np.float32(np.percentile(hdr, 99.0)))
+    rgb = np.clip(rgb * np.float32(0.8 * m_scale), 0.0, m_scale)
+    m = np.ceil(rgb.max(-1) / m_scale * 255.0) / 255.0
+    m = np.clip(m, 1.0 / 255.0, 1.0)
+    out = np.empty((height, width, 4), np.float32)
+    out[..., :3] = rgb / (m[..., None] * m_scale)
+    out[..., 3] = m
+    rng = np.random.default_rng(seed + 1)
+    for k in range(dark_spots):
+        y0 = int(rng.integers(0, max(1, height - 3)))
+        x0 = int(rng.integers(0, max(1, width - 3)))
+        out[y0:y0 + 3, x0:x0 + 3, :3] = 0.0
+        out[y0:y0 + 3, x0:x0 + 3, 3] = (k % 2) / 255.0
+    return np.clip(np.floor(out * 255.0 + 0.5), 0, 255).astype(np.uint8)
+
+
+def synthetic_volume(depth: int, height: int, width: int, seed: int = 0,
+                     hdr: bool = False) -> np.ndarray:
+    """(depth, height, width, 4) RGBA volume texture made from ``seed``:
+    uint8, or with ``hdr`` float16 spanning about 2^-4 to 2^8. A smooth
+    3D luminance field with per-channel tints, seeded balls of a flat
+    colour with hard edges, slabs a quarter darker, noise shared by the
+    channels and a little of each channel's own; alpha is a 3D sinusoid of
+    its own in the far half (x), opaque elsewhere. Made slice by slice in
+    float32, so a 192^3 volume takes a few seconds."""
+    rng = np.random.default_rng(seed)
+    f = rng.uniform(1.0, 3.0, 3).astype(np.float32)
+    ph = rng.uniform(0, 2 * np.pi, 3).astype(np.float32)
+    tph = rng.uniform(0, 2 * np.pi, 4).astype(np.float32)
+    gain = rng.uniform(0.7, 1.1, 4).astype(np.float32)
+    fa = rng.uniform(2.0, 6.0, 3).astype(np.float32)
+    pa = rng.uniform(0, 2 * np.pi, 3).astype(np.float32)
+    nballs = max(4, (depth * height * width) // 400000)
+    balls = [(rng.uniform(0, width), rng.uniform(0, height),
+              rng.uniform(0, depth),
+              rng.uniform(0.05, 0.2) * min(depth, height, width),
+              rng.uniform(0.2, 0.8, 4)) for _ in range(nballs)]
+    slabs = [(int(rng.integers(0, width)),
+              int(rng.integers(1, max(2, width // 12)))) for _ in range(2)]
+    y, x = np.mgrid[0:height, 0:width].astype(np.float32)
+    u = x / max(width - 1, 1)
+    v = y / max(height - 1, 1)
+    far = x >= width // 2
+    out = np.empty((depth, height, width, 4),
+                   np.float16 if hdr else np.uint8)
+    for zi in range(depth):
+        w_ = np.float32(zi / max(depth - 1, 1))
+        lum = 0.5 + 0.25 * (np.sin(2 * np.pi * f[0] * (u + 0.5 * w_) + ph[0])
+                            * np.cos(np.pi * f[1] * (v - 0.3 * u) + ph[1])
+                            * np.cos(np.pi * f[2] * w_ + ph[2]))
+        img = np.empty((height, width, 4), np.float32)
+        for c in range(4):
+            tint = 0.08 * np.sin(2 * np.pi * (u * (c + 1) * 0.7 + v * 0.5
+                                              + w_ * 0.3) + tph[c])
+            img[..., c] = (lum - 0.5) * gain[c] + 0.5 + tint
+        for cx, cy, cz, r, col in balls:
+            m = (x - cx) ** 2 + (y - cy) ** 2 + (zi - cz) ** 2 < r * r
+            img[m] = 0.5 * img[m] + 0.5 * col
+        for x0, wd in slabs:
+            img[:, x0:x0 + wd, :3] *= 0.75
+        img += rng.normal(0.0, 0.03, (height, width, 1)).astype(np.float32)
+        img += rng.normal(0.0, 0.006, img.shape).astype(np.float32)
+        alpha = (0.5 + 0.35 * np.sin(2 * np.pi * fa[0] * v + pa[0])
+                 * np.cos(2 * np.pi * fa[1] * u + pa[1])
+                 * np.cos(2 * np.pi * fa[2] * w_ + pa[2]))
+        if hdr:
+            img[..., :3] = np.exp2(-4.0 + 12.0 * np.clip(img[..., :3], 0, 1))
+            img[..., 3] = np.where(far, np.clip(alpha, 0, 1), 1.0)
+            out[zi] = np.clip(img, 0.0, 65504.0).astype(np.float16)
+        else:
+            img[..., 3] = np.where(far, alpha, img[..., 3])
+            out[zi] = np.clip(np.floor(img * 255.0 + 0.5), 0, 255)
+    return out
+
+
+NONFINITE = (np.nan, np.inf, -np.inf)
+
+
+def nonfinite_image() -> np.ndarray:
+    """(4, 48, 4) float32 image of 12 blocks of 4x4, each 0.5 everywhere
+    but its texel (0, 0) of one channel, which holds NaN, +Inf or -Inf:
+    block 4 v + c holds ``NONFINITE[v]`` in channel c (the 36 cases of
+    the three profiles' non-finite inputs are these 12 under each)."""
+    img = np.full((4, 48, 4), 0.5, np.float32)
+    for v, bad in enumerate(NONFINITE):
+        for c in range(4):
+            img[0, 4 * (4 * v + c), c] = bad
+    return img
+
+
+def feature_image(kind: str, shape, seed: int) -> np.ndarray:
+    """The input of a feature fixture (tests/data/torch_features/) from its
+    kind, shape and seed: "ldr_holes" and "hdr" (``footprint_image``),
+    "rgbm" (``rgbm_image``), "nonfinite" (``nonfinite_image``), "volume"
+    and "volume_hdr" (``synthetic_volume``, shape (depth, height,
+    width))."""
+    shape = tuple(int(s) for s in shape)
+    if kind == "rgbm":
+        return rgbm_image(*shape, seed)
+    if kind == "nonfinite":
+        return nonfinite_image()
+    if kind in ("volume", "volume_hdr"):
+        return synthetic_volume(*shape, seed, hdr=kind == "volume_hdr")
+    return footprint_image(kind, *shape, seed)
 
 
 def endpoint_pairs(rng, n: int):

@@ -22,6 +22,15 @@ non-zero and never prints the last line:
    PyTorch version on the card (the tolerances of tests/test_pallas.py;
    K4: 99.9% of the line errors within 1e-4 and 99% of the selected seeds
    equal; the texel sums bit for bit), timing both with CUDA events;
+3b. kernel forms: capture the inputs of each weighted form (per-block
+   channel weights, USE_ALPHA_WEIGHT: K2 at 1-3 partitions, K3, K4, K5,
+   K6, K7) and RGBM form (K2, K3) from 256x256 encodes at 6x6 -medium -a
+   (an image with transparent holes: blocks whose scale is 0), RGBM (an
+   RGBM texture with texels whose M is 0) and -ch -a, and hold each
+   against its plain version: every output bit for bit (K4: phase 3's
+   bounds), a unit scale the static form's outputs bit for bit, the RGBM
+   rejections (a decoded M of 0) the plain version's and some at least;
+   timed as in phase 3;
 4. stage 1: the earlier slice's configuration (partition count limit 1,
    2-plane correlation limit 0) at 512x512, launch counts read around it;
 5. main path: a 2048x2048 synthetic RGBA8 texture (its right half with an
@@ -80,7 +89,10 @@ non-zero and never prints the last line:
     image remade by testdata.footprint_image from the fixture's kind,
     seed and shape) encoded on the card, with the same gates, the share
     printed per configuration (the CPU port's beside it where the card's
-    is below 1);
+    is below 1); then every fixture of tests/data/torch_features (-a,
+    RGBM, the 36 non-finite cases, every 3D footprint; the input remade
+    by testdata.feature_image), each on the card and on the CPU: the same
+    gates against JAX's blocks and card = CPU 100%;
 15. card against CPU (ROADMAP §C3): the glue's summing sites (the
     encoding-choice errors, the ideal fit, k-means at 2 and 3 partitions,
     the 2-plane correlation, the block mean) on the first 4096 blocks of
@@ -99,6 +111,14 @@ non-zero and never prints the last line:
     through the kernels against the plain versions and against the full
     encode's blocks there (>= 99% of blocks identical, each); then a
     profiled 4x4 -medium encode (device busy, idle share, time by kernel).
+17. the new inputs at full size: 6x6 -medium -a on the main-path texture,
+    6x6 -medium RGBM on a 2048x2048 RGBM texture (testdata.rgbm_image),
+    6x6 -medium -ch -a on the 1024x1024 centre of phase 8's HDR texture,
+    6x6x6 -medium on a 192^3 RGBA8 volume and 4x4x4 -medium -ch on a
+    128^3 float16 volume (testdata.synthetic_volume; 32,768 blocks each),
+    each as phase 16's (a warm-up crop of whole blocks at the origin,
+    256x256 or 30-32^3, held to the plain versions and to the full
+    encode), with the launches of each kernel form.
 
 The fused main paths (phases 5 and 8) must launch K8 no time, as on the
 TPU. The lines before the last are the kernel table as JSON (K1-K4
@@ -106,7 +126,10 @@ launches counted on the LDR main path, K5-K7 and K9 on the HDR path, K8
 on the LDR refine-off path; "redesigned" marks the kernels whose first
 port was redesigned for the card: K1-K6, K8, K9), before it the
 texel-sum kernel's line ("port_kernels", the same keys, launches counted
-on the LDR main path; it replaces no TPU kernel) and the nvidia-smi line;
+on the LDR main path; it replaces no TPU kernel) and the nvidia-smi line.
+The kernels line also lists each weighted and RGBM form ("refine_asr",
+"refine_rgbm", ..., with "form"), timed in phase 3b and its launches
+counted on its phase 17 configuration's encode;
 the last line is
 {"ok": true, "device": {...}}.
 
@@ -463,7 +486,8 @@ def _reset(msearch, refine, psearch, gather, color_pack, texel_sum):
     msearch.launches = refine.launches = refine.launches2 = 0
     refine.launches_round1 = refine.launches_round2 = 0
     refine.launches_boot2 = psearch.launches = color_pack.launches = 0
-    gather.launches_rows = texel_sum.launches = 0
+    gather.launches_rows = texel_sum.launches = psearch.launches_asr = 0
+    refine.form_launches.clear()
 
 
 def _counts(msearch, refine, psearch, gather, color_pack, texel_sum):
@@ -474,7 +498,10 @@ def _counts(msearch, refine, psearch, gather, color_pack, texel_sum):
             "refine_boot2": refine.launches_boot2,
             "row_gather": gather.launches_rows,
             "color_pack": color_pack.launches,
-            "texel_sum": texel_sum.launches}
+            "texel_sum": texel_sum.launches,
+            **({"K4 asr": psearch.launches_asr} if psearch.launches_asr
+               else {}),
+            **{f"{k} {f}": n for (k, f), n in refine.form_launches.items()}}
 
 
 def _capture_hdr(refine, cph):
@@ -779,6 +806,238 @@ def _footprint_fixtures(api, testdata, metrics, decompress, dev):
     return rows
 
 
+def _feature_fixtures(api, testdata, metrics, decompress, dev):
+    """Phase 14, features: per fixture of tests/data/torch_features (-a,
+    RGBM, non-finite input, 3D), the card's share of blocks identical to
+    JAX's and to the CPU port's, and the decoded quality of the card's
+    blocks and of JAX's (decoded by the port)."""
+    folder = os.path.join(_DATA, "torch_features")
+    rows = []
+    for fname in sorted(os.listdir(folder)):
+        fx = np.load(os.path.join(folder, fname))
+        profile = int(fx["profile"])
+        cfg = api.config_init(api.Profile(profile), *(int(v) for v in
+                                                      fx["block"]),
+                              float(fx["quality"]), int(fx["flags"]))
+        kind = str(fx["kind"])
+        img = testdata.feature_image(kind, fx["shape"], int(fx["seed"]))
+        d, h, w = img.shape[:3] if img.ndim == 4 else (1,) + img.shape[:2]
+        ctx = api.context_alloc(cfg, device=dev)
+        got = api.compress_image(ctx, img)
+        cpu = api.compress_image(api.context_alloc(cfg, device="cpu"), img)
+        want = fx["blocks"]
+        assert got.shape == want.shape, (fname, got.shape, want.shape)
+        ident = float((got == want).all(1).mean())
+        card_cpu = float((got == cpu).all(1).mean())
+        hdr = profile >= int(api.Profile.HDR_RGB_LDR_A)
+        src = img if img.ndim == 4 else img[None]
+        if kind == "nonfinite":
+            src = np.nan_to_num(src, nan=0.5, posinf=0.5, neginf=0.5)
+        out = "f32" if hdr or kind == "nonfinite" else "u8"
+        dg, dw = (api.decompress_image(ctx, b, w, h, d, out_type=out)
+                  for b in (got, want))
+        assert np.isfinite(dg).all(), fname
+        if hdr:
+            qg, qw = (metrics.mpsnr(x, src.astype(np.float32))
+                      for x in (dg, dw))
+        elif kind == "nonfinite":
+            qg, qw = (float(10.0 * np.log10(1.0 / np.mean(
+                (x.astype(np.float64) - src) ** 2))) for x in (dg, dw))
+        else:
+            qg, qw = (_psnr(x, src) for x in (dg, dw))
+        row = {"config": str(fx["name"]), "blocks": int(want.shape[0]),
+               "card_identical": ident, "card_vs_cpu": card_cpu,
+               ("mpsnr_db" if hdr else "psnr_db"): qg, "jax_db": qw,
+               "kinds": _block_kinds(decompress, ctx, got)}
+        assert ident >= 0.9 and abs(qg - qw) <= 0.05, row
+        assert card_cpu == 1.0, row
+        rows.append(row)
+    assert len(rows) >= 24, f"{len(rows)} feature fixtures"
+    return rows
+
+
+# The weighted (USE_ALPHA_WEIGHT) and RGBM forms of the refinement kernels
+# and of K4: (kernel, form) -> (JSON name, base kernel).
+FORMS = {("K2", "asr"): "refine_asr", ("K3", "asr"): "refine2_asr",
+         ("K4", "asr"): "psearch_asr", ("K5", "asr"): "refine_round_asr",
+         ("K6", "asr"): "refine_round2_asr", ("K7", "asr"): "refine_boot2_asr",
+         ("K2", "rgbm"): "refine_rgbm", ("K3", "rgbm"): "refine2_rgbm"}
+
+
+def _capture_forms(api, refine, psearch, ctx, img):
+    """The inputs (positional, the cw_scale and rgbm keywords) of the first
+    call of each kernel form in an encode of img through the kernels."""
+    seen = {}
+    wrapped = [
+        (refine, "trial1_refine", lambda a: (
+            "K2", "always" if a[0].kind == "always" else f"pc{a[0].pc}")),
+        (refine, "trial2_refine", lambda a: ("K3", "two")),
+        (refine, "refine_round_1plane", lambda a: (
+            "K5", "boot" if a[10] == 0 else f"pc{a[0].pc}")),
+        (refine, "refine_round_2plane", lambda a: (
+            "K6" if a[11] > 0 else "K7", "two")),
+        (psearch, "line_errors", lambda a: ("K4", f"P{a[5]}"))]
+    orig = {name: getattr(mod, name) for mod, name, _ in wrapped}
+
+    def wrap(name, key):
+        def fn(*a, **kw):
+            k = key(a)
+            if k not in seen:
+                seen[k] = ([_clone(x) for x in a],
+                           {n: _clone(v) for n, v in kw.items()
+                            if n in ("cw_scale", "rgbm")})
+            return orig[name](*a, **kw)
+        return fn
+
+    for mod, name, key in wrapped:
+        setattr(mod, name, wrap(name, key))
+    try:
+        api.compress_image(ctx, img)
+    finally:
+        for mod, name, _ in wrapped:
+            setattr(mod, name, orig[name])
+    return seen
+
+
+def _form_phase(api, testdata, refine, psearch, dev, seed, at):
+    """Phase 3b: each weighted and RGBM form on the inputs a 256x256 encode
+    through the kernels hands it (6x6 -medium -a on an image with
+    transparent holes, RGBM on an RGBM texture with texels whose M is 0,
+    -ch -a on the HDR image), against its plain version: every output bit
+    for bit (K4: phase 3's bounds), a unit cw_scale exactly the static
+    form's outputs, and the RGBM rejections (a decoded M of 0) the plain
+    version's, some at least. Returns per form name the timings, bytes,
+    operations and the largest absolute error."""
+    runs = (("asr", api.Profile.LDR, api.Flags.USE_ALPHA_WEIGHT,
+             testdata.footprint_image("ldr_holes", CROP, CROP, seed + 7)),
+            ("rgbm", api.Profile.LDR, api.Flags.MAP_RGBM,
+             testdata.rgbm_image(CROP, CROP, seed + 8)),
+            ("asr", api.Profile.HDR_RGB_LDR_A, api.Flags.USE_ALPHA_WEIGHT,
+             testdata.synthetic_hdr_image(CROP, CROP, seed + 9,
+                                          independent_alpha=True)))
+    fns = {"K2": (refine.trial1_refine_cuda, refine.trial1_refine_plain),
+           "K3": (refine.trial2_refine_cuda, refine.trial2_refine_plain),
+           "K5": (refine.refine_round_1plane_cuda,
+                  refine.refine_round_1plane_plain),
+           "K6": (refine.refine_round_2plane_cuda,
+                  refine.refine_round_2plane_plain),
+           "K7": (refine.refine_round_2plane_cuda,
+                  refine.refine_round_2plane_plain)}
+    stats = {}
+    rejected = 0
+    for form, profile, flags, img in runs:
+        ctx = api.context_alloc(api.config_init(profile, 6, 6, 1,
+                                                api.Quality.MEDIUM, flags),
+                                device=dev)
+        seen = _capture_forms(api, refine, psearch, ctx, img)
+        for (kern, part), (a, kw) in sorted(seen.items()):
+            if (kern, form) not in FORMS:
+                continue
+            name = FORMS[(kern, form)]
+            if form == "asr":
+                assert kw.get("cw_scale") is not None, (kern, part)
+            k = a[0].k if kern != "K4" else None
+            if kern == "K4":
+                cuda_fn = psearch.line_errors_cuda
+                plain_fn = psearch.line_errors_plain
+                uk, sk = got = cuda_fn(*a, **kw)
+                ux, sx = want = plain_fn(*a, **kw)
+                within = float(torch.minimum(
+                    (uk - ux).abs() <= 1e-4 * ux.abs(),
+                    (sk - sx).abs() <= 1e-4 * sx.abs()).float().mean())
+                assert within >= 0.999, (name, part, within)
+                mae = float(torch.maximum((uk - ux).abs().max(),
+                                          (sk - sx).abs().max()))
+                unit = cuda_fn(*a, cw_scale=torch.ones_like(kw["cw_scale"]))
+                static = cuda_fn(*a)
+                same_unit = all(bool((u.view(torch.int32)
+                                      == v.view(torch.int32)).all())
+                                for u, v in zip(unit, static))
+                detail = {"blocks": a[0].shape[0],
+                          "candidates": a[2].shape[1],
+                          "within_1e-4": within}
+                nbytes = (_nbytes(a[0], a[1], a[2], uk, sk, kw["cw_scale"])
+                          + a[2].numel() * a[3].shape[1]
+                          * a[3].element_size())
+                ops = _ops_k4(a)
+            else:
+                cuda_fn, plain_fn = fns[kern]
+                got, want = cuda_fn(*a, **kw), plain_fn(*a, **kw)
+                torch.cuda.synchronize()
+                diff = sum(int((_bits(got[x]) != _bits(v)).sum())
+                           for x, v in want.items())
+                assert diff == 0, f"{name} {part}: {diff} values differ"
+                mae = 0.0
+                blocks = {"K2": lambda: a[8].shape[0],
+                          "K3": lambda: a[11].shape[0],
+                          "K5": lambda: a[7].shape[0]}.get(
+                              kern, lambda: a[1].shape[0] // a[10])()
+                ones = torch.ones(blocks, dtype=torch.float32, device=dev)
+                static = cuda_fn(*a, rgbm=kw["rgbm"])
+                unit = cuda_fn(*a, cw_scale=ones, rgbm=kw["rgbm"])
+                same_unit = all(bool((_bits(unit[x]) == _bits(v)).all())
+                                for x, v in static.items())
+                detail = {"lanes": a[1].shape[0], "values_differing": diff}
+                if form == "rgbm":
+                    alive = a[4 if kern == "K2" else 5]
+                    rej = [int(((r["err_pre"] >= 1e30) & alive).sum())
+                           for r in (got, want)]
+                    assert rej[0] == rej[1], (name, part, rej)
+                    rejected += rej[0]
+                    detail["m_zero_rejected_lanes"] = rej[0]
+                T = {"K2": 8, "K3": 9, "K5": 7}.get(kern, 9)
+                T = a[T].shape[1]
+                nbytes = (_nbytes(*[x for x in a[1:] if torch.is_tensor(x)],
+                                  k.tap_w, k.tap_i, k.wt_t, k.wt_i, k.wt_n,
+                                  k.dm_color, k.pn,
+                                  kw.get("cw_scale"))
+                          + _nbytes(*got.values()))
+                lanes = a[1].shape[0]
+                if kern in ("K2", "K3"):
+                    ops = _ops_refine(T, a[0].pc, 2 if kern == "K3" else 1,
+                                      want["err_pre"], want["err_post"])
+                elif kern == "K7":
+                    ops = lanes * 16 * T
+                else:
+                    planes = 2 if kern == "K6" else 1
+                    ops = _ops_round(T, planes, lanes,
+                                     int(a[4 if kern == "K5" else 5].sum()),
+                                     a[10 if kern == "K5" else 11])
+            assert same_unit, f"{name} {part}: unit scale differs from static"
+            # The static form on the same inputs: no scale, or no RGBM.
+            off = ({"rgbm": kw["rgbm"]} if form == "asr" and kern != "K4"
+                   else {} if form == "asr"
+                   else {"cw_scale": kw.get("cw_scale")})
+            static_ms = _device_ms(lambda: cuda_fn(*a, **off), 10)
+            ms = _device_ms(lambda: cuda_fn(*a, **kw), 10)
+            event_ms = _time_ms(lambda: cuda_fn(*a, **kw), 10)
+            plain_ms = _time_ms(lambda: plain_fn(*a, **kw), 2)
+            s = stats.setdefault(name, {"ms": 0.0, "event_ms": 0.0,
+                                        "plain_ms": 0.0, "static_ms": 0.0,
+                                        "bytes": 0, "ops": 0.0,
+                                        "max_abs_err": 0.0})
+            for x, v in (("ms", ms), ("event_ms", event_ms),
+                         ("plain_ms", plain_ms), ("static_ms", static_ms),
+                         ("bytes", nbytes), ("ops", ops)):
+                s[x] += v
+            s["max_abs_err"] = max(s["max_abs_err"], mae)
+            bms, by = _bound(nbytes, ops)
+            print(f"{at()} kernel forms: {name} {part}: "
+                  f"{json.dumps(detail)}, unit scale = static form: "
+                  f"{same_unit}; kernel {ms:.4f} ms device ({event_ms:.4f} "
+                  f"ms a call by events; the static form {static_ms:.4f} ms "
+                  f"device on these inputs), plain {plain_ms:.3f} ms, bound "
+                  f"{bms:.4f} ms ({by})", flush=True)
+    assert rejected > 0, "no RGBM rejection fired"
+    missing = set(FORMS.values()) - set(stats)
+    assert not missing, f"forms not captured: {sorted(missing)}"
+    return stats
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
 # Phase 16: (tag, profile, footprint, quality, image): "main" is the
 # main-path texture, "hdr" the 1024x1024 centre of phase 8's HDR texture.
 FULL_SIZE = (("4x4 -medium", "LDR", 4, "MEDIUM", "main"),
@@ -855,6 +1114,110 @@ def _full_footprints(api, compress_mod, decompress, metrics, counters, img,
               f"plain versions {ident:.4f} identical, vs the full encode's "
               f"blocks there {in_full:.4f} | {smi}", flush=True)
     return ctxs["4x4 -medium"]
+
+
+# Phase 17: (tag, profile, footprint, quality, flag, input): "main" is the
+# main-path texture, "rgbm" an RGBM texture of its size, "hdr" the 1024x1024
+# centre of phase 8's HDR texture, "volume" a VOLUME^3 RGBA8 volume,
+# "volume_hdr" a VOLUME_HDR^3 float16 one.
+FULL_FEATURES = (
+    ("6x6 -medium -a", "LDR", (6, 6, 1), "MEDIUM", "USE_ALPHA_WEIGHT",
+     "main", ("K2 asr", "K3 asr", "K4 asr")),
+    ("6x6 -medium RGBM", "LDR", (6, 6, 1), "MEDIUM", "MAP_RGBM", "rgbm",
+     ("K2 rgbm", "K3 rgbm")),
+    ("6x6 -medium -ch -a", "HDR_RGB_LDR_A", (6, 6, 1), "MEDIUM",
+     "USE_ALPHA_WEIGHT", "hdr", ("K5 asr", "K6 asr", "K7 asr")),
+    ("6x6x6 -medium", "LDR", (6, 6, 6), "MEDIUM", None, "volume",
+     ("msearch", "refine", "psearch")),
+    ("4x4x4 -medium -ch", "HDR_RGB_LDR_A", (4, 4, 4), "MEDIUM", None,
+     "volume_hdr", ("msearch", "refine_round", "psearch")))
+VOLUME = 192      # side of the 6x6x6 volume: 32768 blocks
+VOLUME_HDR = 128  # side of the 4x4x4 -ch volume: 32768 blocks
+VOLUME_CROP = 32  # side of the 3D warm-up crops
+
+
+def _full_features(api, compress_mod, decompress, metrics, testdata,
+                   counters, img, img_h, dev, seed, smi, at):
+    """Phase 17: the FULL_FEATURES configurations through
+    api.compress_image, each after a warm-up encode of a crop of whole
+    blocks at the origin (256x256, or 32^3 rounded down to whole blocks),
+    which is then held to the plain versions and to the full encode's
+    blocks there. Returns the launches of each weighted and RGBM form on
+    its configuration's encode."""
+    q = img_h.shape[0] // 4
+    inputs = {
+        "main": lambda: img,
+        "rgbm": lambda: testdata.rgbm_image(SIZE, SIZE, seed + 10),
+        "hdr": lambda: np.ascontiguousarray(img_h[q:3 * q, q:3 * q]),
+        "volume": lambda: testdata.synthetic_volume(VOLUME, VOLUME, VOLUME,
+                                                    seed + 11),
+        "volume_hdr": lambda: testdata.synthetic_volume(
+            VOLUME_HDR, VOLUME_HDR, VOLUME_HDR, seed + 12, hdr=True)}
+    form_launches = {}
+    for tag, prof, fp, quality, flag, which, need in FULL_FEATURES:
+        cfg = api.config_init(getattr(api.Profile, prof), *fp,
+                              getattr(api.Quality, quality),
+                              getattr(api.Flags, flag) if flag else 0)
+        ctx = api.context_alloc(cfg, device=dev)
+        t0 = time.perf_counter()
+        image = inputs[which]()
+        make_s = time.perf_counter() - t0
+        vol = image.ndim == 4
+        bx, by, bz = fp
+        side = (VOLUME_CROP if vol else CROP) // bx * bx
+        crop = np.ascontiguousarray(image[:side, :side, :side] if vol
+                                    else image[:side, :side])
+        b_k = api.compress_image(ctx, crop)                 # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        _reset(*counters)
+        t0 = time.perf_counter()
+        blocks = api.compress_image(ctx, image)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        launches = _counts(*counters)
+        peak = torch.cuda.max_memory_allocated(dev)
+        assert all(launches.get(k, 0) > 0 for k in need), (tag, launches)
+        assert launches["row_gather"] == 0, (tag, launches)
+        for k in need:
+            if " " in k:
+                form_launches[k] = launches[k]
+        D, H, W = image.shape[:3] if vol else (1,) + image.shape[:2]
+        nx, ny, nz = -(-W // bx), -(-H // by), -(-D // bz)
+        n = nx * ny * nz
+        assert blocks.shape == (n, 16), (tag, blocks.shape)
+        c = side // bx
+        rows = ((np.arange(c if vol else 1)[:, None, None] * ny
+                 + np.arange(c)[None, :, None]) * nx
+                + np.arange(c)[None, None, :]).ravel()
+        in_full = float((blocks[rows] == b_k).all(1).mean())
+        assert in_full >= 0.99, (tag, "crop vs full encode", in_full)
+        hdr = prof != "LDR"
+        dec = api.decompress_image(ctx, blocks, W, H, D,
+                                   out_type="f32" if hdr else "u8")
+        src = image if vol else image[None]
+        assert dec.shape == src.shape and np.isfinite(dec).all(), tag
+        quality_db = (metrics.mpsnr(dec, src.astype(np.float32)) if hdr
+                      else _psnr(dec, src))
+        assert quality_db > 20.0, (tag, quality_db)
+        kinds = _block_kinds(decompress, ctx, blocks)
+        b_p = compress_mod.compress_image(ctx, crop, use_kernels=False)
+        ident = float((b_k == b_p).all(1).mean())
+        assert ident >= 0.99, (tag, "crop identical blocks", ident)
+        texels = D * H * W
+        shape = "x".join(str(v) for v in ((D, H, W) if vol else (W, H)))
+        print(f"{at()} full size {tag}: {shape} "
+              f"{'float16' if hdr else 'RGBA8'} (made in {make_s:.1f} s), "
+              f"{n} blocks, encode {enc_s:.3f} s = "
+              f"{texels / enc_s / 1e6:.4f} Mtexels/s, "
+              f"{'mPSNR' if hdr else 'PSNR'} {quality_db:.4f} dB, blocks "
+              f"{json.dumps(kinds)}, launches {json.dumps(launches)}, "
+              f"max_memory_allocated {peak / 2**30:.3f} GiB ({base / 2**30:.3f}"
+              f" GiB before), {side}^{3 if vol else 2} crop kernels vs plain "
+              f"versions {ident:.4f} identical, vs the full encode's blocks "
+              f"there {in_full:.4f} | {smi}", flush=True)
+    return form_launches
 
 
 def main() -> int:
@@ -1080,6 +1443,10 @@ def main() -> int:
               f"({event_ms:.4f} ms a call by events), plain {plain_ms:.3f} "
               f"ms, library {lib_ms:.4f} ms device, bound {bms:.5f} ms "
               f"({by})", flush=True)
+
+    # --- 3b. the weighted and RGBM kernel forms vs plain ---------------------
+    form_stats = _form_phase(api, testdata, refine, psearch, dev, args.seed,
+                             at)
 
     # --- 4. stage 1 (the earlier slice's configuration) --------------------
     cfg1 = api.config_init(api.Profile.LDR, 6, 6, 1, api.Quality.MEDIUM, 0)
@@ -1495,6 +1862,13 @@ def main() -> int:
     print(f"{at()} JAX blocks, footprints: {len(rows)} configurations, "
           f"card identical {min(r['card_identical'] for r in rows):.4f} at "
           f"least | {smi}", flush=True)
+    rows = _feature_fixtures(api, testdata, metrics, decompress, dev)
+    for row in rows:
+        print(f"{at()} JAX blocks, features: {json.dumps(row)}", flush=True)
+    print(f"{at()} JAX blocks, features: {len(rows)} configurations, card "
+          f"identical {min(r['card_identical'] for r in rows):.4f} at least, "
+          f"card vs CPU {min(r['card_vs_cpu'] for r in rows):.4f} at least "
+          f"| {smi}", flush=True)
 
     # --- 15. card against CPU: the summing sites and two 256x256 encodes -----
     sites = _c3_sites(api, compress_mod, partition_search, img, dev)
@@ -1522,6 +1896,11 @@ def main() -> int:
     prof4 = _profile(lambda: api.compress_image(ctx4, img))
     print(f"{at()} profile 4x4 -medium ({SIZE}x{SIZE}): {json.dumps(prof4)}"
           f" | {smi}", flush=True)
+
+    # --- 17. the new inputs at full size ----------------------------------
+    form_launches = _full_features(api, compress_mod, decompress, metrics,
+                                   testdata, counters, img, img_h, dev,
+                                   args.seed, smi, at)
 
     meta = {"K1": ("msearch", "astcenc_torch/csrc/msearch.cu",
                    "astcenc_tpu/ops/msearch_pallas.py:281"),
@@ -1558,6 +1937,22 @@ def main() -> int:
                         "plain_ms": s["plain_ms"], "bound_ms": bms,
                         "bound_by": by, "library_ms": s["library_ms"],
                         "redesigned": kern in redesigned})
+    # The weighted and RGBM forms: launches on their phase 17
+    # configuration's encode.
+    for (kern, form), fname in FORMS.items():
+        name, src, rep = meta[kern]
+        s = form_stats[fname]
+        bms, by = _bound(s["bytes"], s["ops"])
+        n = form_launches[f"{kern} {form}"]
+        assert n > 0, f"{fname} was not launched on its path"
+        kernels.append({"name": fname, "form": form, "route": "cuda",
+                        "source": src, "replaces": rep, "launches": n,
+                        "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+                        "event_ms": s["event_ms"],
+                        "static_ms": s["static_ms"],
+                        "plain_ms": s["plain_ms"], "bound_ms": bms,
+                        "bound_by": by, "library_ms": None,
+                        "redesigned": False})
     assert launches["texel_sum"] > 0, "texel_sum was not launched"
     bms, by = _bound(ts_stats["bytes"], ts_stats["ops"])
     print(json.dumps({"port_kernels": [{

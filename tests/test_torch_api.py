@@ -262,9 +262,17 @@ def _exact_mask(alpha, bx, by, r):
 
 def test_alpha_scale_refuses_nothing_but_3d():
     """a_scale_radius encodes in 2D (the footprint fixture R holds it to
-    JAX's blocks); 3D blocks stay refused whatever it says."""
-    img = testdata.synthetic_image(12, 12, 1)
-    cfg = tapi.config_init(tapi.Profile.LDR, 4, 4, 4, tapi.Quality.FASTEST, 0)
-    cfg.a_scale_radius = 2
-    with pytest.raises(NotImplementedError):
-        tapi.compress_image(tapi.context_alloc(cfg, device="cpu"), img)
+    JAX's blocks); 3D blocks, which the port once refused, encode too, and
+    there the mask is 2D-only (JAX compress.py:1057): the blocks are those
+    of the encode without it, though a slab of the volume is transparent."""
+    vol = testdata.synthetic_volume(4, 8, 8, 1)
+    vol[:, :, :4, 3] = 0
+    blocks = []
+    for radius in (2, 0):
+        cfg = tapi.config_init(tapi.Profile.LDR, 4, 4, 4,
+                               tapi.Quality.FASTEST, 0)
+        cfg.a_scale_radius = radius
+        blocks.append(tapi.compress_image(
+            tapi.context_alloc(cfg, device="cpu"), vol))
+    assert blocks[0].shape == (4, 16)
+    assert np.array_equal(blocks[0], blocks[1])

@@ -1086,3 +1086,127 @@ def test_hdr_blocks_match_jax_fixture(cuda_device):
     print(f"48x48 -ch: card {ident:.4f} of blocks identical to JAX (CPU "
           f"port {ident_cpu:.4f}); mPSNR {mg:.5f} dB, JAX {mw:.5f} dB")
     assert ident >= 0.9 and abs(mg - mw) <= 0.05, (ident, mg, mw)
+
+
+# --- the weighted (USE_ALPHA_WEIGHT) and RGBM forms of K2-K7 ---------------
+
+def _form_calls(dev, kind, side=48):
+    """The arguments (positional, keywords) a small plain encode hands each
+    kernel's router on its first call of each form: kind "a" (6x6 -medium
+    -a on an image with transparent holes: blocks whose scale is 0), "rgbm"
+    (6x6 -medium RGBM on ``testdata.rgbm_image``, texels whose M is 0) or
+    "ch_a" (6x6 -medium -ch -a). Keys: ("K2", pass kind, pc), ("K3",),
+    ("K4", P), ("K5", realign), ("K6",), ("K7",)."""
+    from astcenc_torch.ops import refine
+    profile, flags = {"a": (api.Profile.LDR, api.Flags.USE_ALPHA_WEIGHT),
+                      "rgbm": (api.Profile.LDR, api.Flags.MAP_RGBM),
+                      "ch_a": (api.Profile.HDR_RGB_LDR_A,
+                               api.Flags.USE_ALPHA_WEIGHT)}[kind]
+    img = {"a": lambda: testdata.footprint_image("ldr_holes", side, side, 5),
+           "rgbm": lambda: testdata.rgbm_image(side, side, 6),
+           "ch_a": lambda: testdata.synthetic_hdr_image(
+               side, side, 7, independent_alpha=True)}[kind]()
+    ctx = api.context_alloc(api.config_init(profile, 6, 6, 1,
+                                            api.Quality.MEDIUM, flags),
+                            device=dev)
+    seen = {}
+    wrapped = [(refine, "trial1_refine",
+                lambda a: ("K2", a[0].kind, a[0].pc)),
+               (refine, "trial2_refine", lambda a: ("K3",)),
+               (refine, "refine_round_1plane", lambda a: ("K5", a[10] > 0)),
+               (refine, "refine_round_2plane",
+                lambda a: ("K6",) if a[11] > 0 else ("K7",)),
+               (psearch, "line_errors", lambda a: ("K4", a[5]))]
+    orig = {name: getattr(mod, name) for mod, name, _ in wrapped}
+
+    def wrap(name, key):
+        def fn(*a, **kw):
+            seen.setdefault(key(a), (a, {k: v for k, v in kw.items()
+                                         if k in ("cw_scale", "rgbm")}))
+            return orig[name](*a, **kw)
+        return fn
+
+    for mod, name, key in wrapped:
+        setattr(mod, name, wrap(name, key))
+    try:
+        tc.compress_image(ctx, img, use_kernels=False)
+    finally:
+        for mod, name, _ in wrapped:
+            setattr(mod, name, orig[name])
+    return seen
+
+
+_FORM_FNS = {"K2": ("trial1_refine_cuda", "trial1_refine_plain"),
+             "K3": ("trial2_refine_cuda", "trial2_refine_plain"),
+             "K5": ("refine_round_1plane_cuda", "refine_round_1plane_plain"),
+             "K6": ("refine_round_2plane_cuda", "refine_round_2plane_plain"),
+             "K7": ("refine_round_2plane_cuda", "refine_round_2plane_plain")}
+
+
+@pytest.mark.parametrize("kind,kern", [
+    ("a", "K2"), ("a", "K3"), ("a", "K4"), ("ch_a", "K5"), ("ch_a", "K6"),
+    ("ch_a", "K7"), ("rgbm", "K2"), ("rgbm", "K3")])
+def test_weighted_forms_match_plain(cuda_device, kind, kern):
+    """Each new form on the inputs a small encode hands it: the kernel
+    equals its plain version bit for bit (K4: chip_smoke.py's share
+    bounds, as its static form), a unit ``cw_scale`` gives exactly the
+    static form's outputs, and under RGBM the kernel rejects the same
+    lanes (a decoded M of 0) as the plain version, some at least."""
+    from astcenc_torch.ops import refine
+    calls = {k: v for k, v in _form_calls(cuda_device, kind).items()
+             if k[0] == kern}
+    assert calls, f"{kern} was not called"
+    for key, (a, kw) in sorted(calls.items(), key=str):
+        if kind != "rgbm":
+            assert kw["cw_scale"] is not None, key
+        if kern == "K4":
+            uk, sk = psearch.line_errors_cuda(*a, **kw)
+            ux, sx = psearch.line_errors_plain(*a, **kw)
+            for g, w in ((uk, ux), (sk, sx)):
+                rel = ((g - w).abs() / w.abs().clamp(min=1e-30)).cpu()
+                assert (rel <= 1e-4).float().mean() >= 0.999, key
+            static = psearch.line_errors_cuda(*a)
+            unit = psearch.line_errors_cuda(
+                *a, cw_scale=torch.ones_like(kw["cw_scale"]))
+            assert all((_bits(s) == _bits(u)).all()
+                       for s, u in zip(static, unit)), key
+            continue
+        cuda_fn, plain_fn = (getattr(refine, n) for n in _FORM_FNS[kern])
+        got, want = cuda_fn(*a, **kw), plain_fn(*a, **kw)
+        assert _round_differing(f"{kind} {key}", got, want) == 0, key
+        n = {"K2": a[8], "K3": a[11], "K5": a[7]}.get(kern)
+        blocks = (n.shape[0] if n is not None
+                  else a[1].shape[0] // a[10])
+        ones = torch.ones(blocks, dtype=torch.float32, device=cuda_device)
+        static = cuda_fn(*a, rgbm=kw["rgbm"])
+        unit = cuda_fn(*a, cw_scale=ones, rgbm=kw["rgbm"])
+        assert all((_bits(unit[k]) == _bits(v)).all()
+                   for k, v in static.items()), key
+        if kind == "rgbm":
+            alive = a[4 if kern == "K2" else 5]
+            for k in ("err_pre", "err_post"):
+                rej_k = int(((got[k] >= 1e30) & alive).sum())
+                rej_x = int(((want[k] >= 1e30) & alive).sum())
+                print(f"rgbm {key} {k}: {rej_k} live lanes rejected")
+                assert rej_k == rej_x, key
+            assert int(((want["err_pre"] >= 1e30) & alive).sum()) > 0, key
+
+
+@pytest.mark.parametrize("quality", ["MEDIUM", "EXHAUSTIVE"])
+@pytest.mark.parametrize("profile", ["LDR", "HDR_RGB_LDR_A"])
+def test_3d_kernels_match_plain(cuda_device, profile, quality):
+    """6x6x6 (T = 216, 435 modes): a small volume encoded through the
+    kernels and through the plain versions, >= 99% of blocks identical
+    (K1 at its largest mode count, K4 at T above 144, K2 and K5 at their
+    largest shared memory with -exhaustive's candidates)."""
+    ctx = api.context_alloc(api.config_init(
+        getattr(api.Profile, profile), 6, 6, 6,
+        getattr(api.Quality, quality), 0), device=cuda_device)
+    vol = testdata.synthetic_volume(12, 11, 17, 9,
+                                    hdr=profile != "LDR")
+    got = api.compress_image(ctx, vol)
+    want = tc.compress_image(ctx, vol, use_kernels=False)
+    same = float((got == want).all(1).mean())
+    print(f"6x6x6 {profile} {quality}: {same:.4f} of {got.shape[0]} blocks "
+          f"identical")
+    assert same >= 0.99

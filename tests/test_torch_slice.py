@@ -58,15 +58,30 @@ def test_slice_matches_jax():
 
 
 def test_unported_stages_refused():
-    """What the encoder does not do yet raises: 3D blocks (LDR and HDR),
-    per-block alpha weighting and RGBM."""
+    """The port refuses exactly what the JAX package refuses: MAP_RGBM with
+    an M scale below 1 raises ConfigError in both when the context is
+    made. The four inputs the port once refused, 3D blocks (HDR and LDR),
+    per-block alpha weighting and RGBM, now encode to blocks that decode
+    to finite texels."""
+    for api in (tapi, japi):
+        cfg = api.config_init(api.Profile.LDR, 6, 6, 1, api.Quality.MEDIUM,
+                              api.Flags.MAP_RGBM)
+        cfg.rgbm_m_scale = 0.5
+        with pytest.raises(api.ConfigError):
+            api.context_alloc(cfg, **({"device": "cpu"} if api is tapi
+                                      else {}))
     img = testdata.synthetic_image(12, 12, 1)
-    for profile, dims, flags in (
-            (tapi.Profile.HDR, (4, 4, 4), 0),
-            (tapi.Profile.LDR, (4, 4, 4), 0),
-            (tapi.Profile.LDR, (6, 6, 1), tapi.Flags.USE_ALPHA_WEIGHT),
-            (tapi.Profile.LDR, (6, 6, 1), tapi.Flags.MAP_RGBM)):
+    vol = testdata.synthetic_volume(4, 8, 8, 1)
+    for profile, dims, flags, src in (
+            (tapi.Profile.HDR, (4, 4, 4), 0, vol.astype(np.float16)),
+            (tapi.Profile.LDR, (4, 4, 4), 0, vol),
+            (tapi.Profile.LDR, (6, 6, 1), tapi.Flags.USE_ALPHA_WEIGHT, img),
+            (tapi.Profile.LDR, (6, 6, 1), tapi.Flags.MAP_RGBM, img)):
         tctx = tapi.context_alloc(tapi.config_init(
-            profile, *dims, tapi.Quality.MEDIUM, flags), device="cpu")
-        with pytest.raises(NotImplementedError):
-            tapi.compress_image(tctx, img)
+            profile, *dims, tapi.Quality.FASTEST, flags), device="cpu")
+        blocks = tapi.compress_image(tctx, src)
+        assert blocks.shape == (4, 16)
+        d = src.shape[0] if src.ndim == 4 else 1
+        out = tapi.decompress_image(tctx, blocks, src.shape[-2],
+                                    src.shape[-3], d, out_type="f32")
+        assert np.isfinite(out).all()
