@@ -116,11 +116,15 @@ class Context:
         return ent[key]
 
 
-def context_alloc(config: ASTCConfig, device="cuda") -> Context:
+def context_alloc(config: ASTCConfig, thread_count: int = 0, *,
+                  device="cuda") -> Context:
     """Build a context (reference: astcenc_context_alloc,
     astcenc_entry.cpp:726) for tensors on ``device``: the card unless the
     caller asks for the CPU. A CUDA device on a host without one raises;
-    nothing falls back to the CPU."""
+    nothing falls back to the CPU. ``thread_count`` is taken and ignored,
+    as in the JAX package: the batched encode replaces the caller's
+    thread pool."""
+    del thread_count
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("context_alloc: no CUDA device (pass "
@@ -148,10 +152,14 @@ def context_alloc(config: ASTCConfig, device="cuda") -> Context:
 
 
 def compress_image(ctx: Context, image: np.ndarray, swizzle=(0, 1, 2, 3),
-                   progress_callback=None) -> np.ndarray:
-    """Compress an image array to (N, 16) uint8 blocks, raster order."""
+                   progress_callback=None, tracer=None) -> np.ndarray:
+    """Compress an image array to (N, 16) uint8 blocks, raster order.
+    ``tracer``, if given, collects the block/pass/candidate diagnostic tree
+    (``codec.trace.Tracer``; the reference's ASTCENC_DIAGNOSTICS -dtrace
+    build)."""
     return compress_mod.compress_image(ctx, image, swizzle,
-                                       progress_callback=progress_callback)
+                                       progress_callback=progress_callback,
+                                       tracer=tracer)
 
 
 def compress_reset(ctx: Context) -> None:
@@ -191,7 +199,7 @@ def get_block_info(ctx: Context, block) -> dict:
 def decompress_blocks(ctx: Context, blocks, decode_unorm8: bool = False):
     """Decode raw (N, 16) blocks to (N, T, 4) float32 texels (a tensor on
     ctx.device)."""
-    pcb = torch.as_tensor(np.ascontiguousarray(blocks, dtype=np.uint8)
+    pcb = torch.as_tensor(np.array(blocks, dtype=np.uint8, order="C")
                           if not torch.is_tensor(blocks) else blocks)
     return decompress.decompress_symbolic_batch(
         ctx.torch_decode_tables(), pcb.to(ctx.device),

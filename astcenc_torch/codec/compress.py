@@ -5,8 +5,10 @@ _lowest_correlation, the split-stage compress_symbolic_batch (:268-287)
 with _stage1_1plane (:290-411), _stage2a_2plane (:432-494),
 _stage2b_multipart and _stage2b_one_pc (:497-619), _finalize_pack
 (:622-646), and compress_image (:1001-1123): with its alpha-scale RDO
-(:1051-1059, :1081-1082; the mask ``_alpha_zero_blocks``, :1184-1215) and
-its cancel check before each chunk (:1086-1095). It takes what the JAX
+(:1051-1059, :1081-1082; the mask ``_alpha_zero_blocks``, :1184-1215), its
+cancel check before each chunk (:1086-1095) and its diagnostic trace
+(-dtrace: ``_trace_blocks`` :180, ``_trace_pass`` :202, the lowest
+correlation :452-456, the block positions :1104-1116). It takes what the JAX
 encoder takes: 2D and 3D footprints, per-block alpha weighting
 (USE_ALPHA_WEIGHT: the block state's ``cw_scale``), RGBM (the trials'
 RGBM metric) and non-finite floats (NaN to 0, infinities clamped).
@@ -33,6 +35,7 @@ from ..ops import gather
 from ..ops import softfloat as sf
 from ..ops import texel_sum as ts
 from . import partition_search, physical, trial
+from .trace import Tracer
 
 TUNE_MIN_SEARCH_MODE0 = 0.85
 ERROR_CALC_DEFAULT = 1e30
@@ -94,6 +97,92 @@ def _lowest_correlation(texels, channel_weight):
     return corr[:, iu[0], iu[1]].abs().amin(1)
 
 
+class _Trace:
+    """A tracer and the block index of each row of the batch a stage sees:
+    the driver hands each stage the rows it compacted, so the hooks map
+    every row back to its block. Each hook copies whole record tensors to
+    the host once. ``bsd`` names the block modes; ``K`` is the number of
+    records of a candidate, [r0-pre, r0-post, r1-post, ...]."""
+
+    def __init__(self, tracer: Tracer, rows: np.ndarray, bsd, K: int):
+        self.tracer = tracer
+        self.rows = rows
+        self.bsd = bsd
+        self.K = K
+
+    def sub(self, idx) -> "_Trace":
+        """The trace of the compacted rows ``idx``."""
+        return _Trace(self.tracer, self.rows[idx.cpu().numpy()], self.bsd,
+                      self.K)
+
+    def blocks(self, st, error_threshold, is_const):
+        """Block-node attributes (compress.py:180; reference: compress_block,
+        astcenc_compress_symbolic.cpp:1173-1212)."""
+        dmin = st["data_min"].cpu().numpy()
+        dmax = st["data_max"].cpu().numpy()
+        thr = np.broadcast_to(torch.as_tensor(error_threshold).cpu().numpy(),
+                              (len(self.rows),))
+        isc = is_const.cpu().numpy()
+        for n, gi in enumerate(self.rows.tolist()):
+            b = self.tracer.block(gi, self.tracer.positions.get(gi,
+                                                                (0, 0, 0)))
+            for i, c in enumerate("rgba"):
+                b.add(f"min_{c}", float(dmin[n, i]))
+                b.add(f"max_{c}", float(dmax[n, i]))
+            b.add("tune_error_threshold", float(thr[n]))
+            if isc[n]:
+                p = b.child("pass")
+                p.add("partition_count", 0)
+                p.add("plane_count", 1)
+                p.add("exit", "quality hit")
+
+    def value(self, key: str, values):
+        """One attribute on every row's block node."""
+        for gi, v in zip(self.rows.tolist(), values.cpu().numpy().tolist()):
+            self.tracer.block(gi).add(key, float(v))
+
+    def passes(self, recs, partition_count: int, plane_count: int, active,
+               only_always: bool = False, plane_component=None,
+               partition_index=None):
+        """One pass node per active row, with one candidate node per
+        candidate that has a record (compress.py:202; reference:
+        astcenc_compress_symbolic.cpp:506-676, 1295-1429)."""
+        bsd, K = self.bsd, self.K
+        err = recs["err"].cpu().numpy()
+        mode = recs["mode"].cpu().numpy()
+        act = active.cpu().numpy()
+        pidx = (None if partition_index is None
+                else partition_index.cpu().numpy())
+        bm_index = {int(m): i for i, m in enumerate(bsd.bm_mode_index)}
+        wdims = bsd.dm_weight_dims
+        C = err.shape[1] // K
+        for n in np.nonzero(act)[0].tolist():
+            p = self.tracer.block(int(self.rows[n])).child("pass")
+            p.add("partition_count", int(partition_count))
+            p.add("plane_count", int(plane_count))
+            if plane_component is not None:
+                p.add("plane_component", int(plane_component))
+            if pidx is not None:
+                p.add("partition_index", int(pidx[n]))
+            if only_always:
+                p.add("search_mode", "only_always")
+            for c in range(C):
+                errs = err[n, c * K:(c + 1) * K]
+                if not np.any(errs < 1e29):
+                    continue
+                cn = p.child("candidate")
+                bi = bm_index.get(int(mode[n, c * K]))
+                if bi is not None:
+                    wx, wy, wz = wdims[bsd.bm_decimation_mode[bi]]
+                    cn.add("weight_x", int(wx))
+                    cn.add("weight_y", int(wy))
+                    cn.add("weight_z", int(wz))
+                    cn.add("weight_quant", int(bsd.bm_quant_mode[bi]))
+                cn.add("error_prerealign", float(errs[0]))
+                for e in errs[1:].tolist():
+                    cn.add("error_postrealign", float(e))
+
+
 def _u8_mask(cfg) -> bool:
     return (int(cfg.profile) == int(Profile.LDR_SRGB)
             or bool(cfg.flags & Flags.USE_DECODE_UNORM8))
@@ -117,12 +206,13 @@ def _scatter(full: dict, idx, part: dict) -> dict:
 
 
 def stage1_1plane(ctx, texels, use_kernels: bool = True,
-                  disabled: frozenset = frozenset()):
+                  disabled: frozenset = frozenset(), trace=None):
     """Block state, constant detection and the 1-partition 1-plane passes
     (compress.py:290-411). Returns (scb, aux); aux holds what the later
     stages and finalize read: the block state, the error threshold, the
     weight-quant limit and best error the later trials use, and the
-    2-plane gate. ``use_kernels``/``disabled``: ``trial._switches``."""
+    2-plane gate. ``use_kernels``/``disabled``: ``trial._switches``;
+    ``trace``: a ``_Trace`` or None."""
     cfg = ctx.config
     et = ctx.encoder_tables()
     dt = ctx.torch_decode_tables()
@@ -152,6 +242,8 @@ def stage1_1plane(ctx, texels, use_kernels: bool = True,
     la_scale = torch.where(st["is_luminancealpha"], 1.0 / 1.05, 1.0)
     error_threshold = cfg.tune_db_limit * ews * l_scale * la_scale
     overshoot = 1.0 / cfg.tune_mse_overshoot
+    if trace is not None:
+        trace.blocks(st, error_threshold, is_const)
 
     scb = trial.empty_scb(N, T, dev)
     scb["finished"] = is_const
@@ -173,6 +265,8 @@ def stage1_1plane(ctx, texels, use_kernels: bool = True,
             st, ctx.pass_tables("always" if i == 0 else "full"), cfg,
             profile, _u8_mask(cfg), full_limit, ~scb["finished"],
             use_kernels=use_kernels, disabled=disabled)
+        if trace is not None:
+            trace.passes(recs, 1, 1, ~scb["finished"], only_always=(i == 0))
         scb, errv = trial.apply_records_1plane(scb, recs, thr1, 1, pindex)
         won = ~scb["block_type_error"]
         pk = dt.block_mode_packed_index[
@@ -184,20 +278,22 @@ def stage1_1plane(ctx, texels, use_kernels: bool = True,
         scb["finished"] = scb["finished"] | (
             errv < error_threshold * errorval_mult[i])
 
+    lowest_correl = None
     if et.m2_quant.shape[0] > 0:
-        skip2p = (_lowest_correlation(texels, cw)
-                  > cfg.tune_2plane_early_out_limit_correlation)
+        lowest_correl = _lowest_correlation(texels, cw)
+        skip2p = lowest_correl > cfg.tune_2plane_early_out_limit_correlation
     else:
         skip2p = torch.ones((N,), dtype=torch.bool, device=dev)
     aux = {"is_const": is_const, "const_color": const_color, "st": st,
            "error_threshold": error_threshold, "overshoot": overshoot,
-           "quant_limit": quant_limit, "best0": best0, "skip2p": skip2p}
+           "quant_limit": quant_limit, "best0": best0, "skip2p": skip2p,
+           "lowest_correl": lowest_correl}
     return scb, aux
 
 
 def stage2a_2plane(ctx, st, scb, quant_limit, best0, error_threshold,
                    overshoot: float, use_kernels: bool = True,
-                   disabled: frozenset = frozenset()):
+                   disabled: frozenset = frozenset(), trace=None):
     """1-partition 2-plane trials (compress.py:432-494) on blocks the
     correlation gate left eligible: the four plane-2 components in one
     folded batch, then per component the reference's sequential take and
@@ -222,6 +318,8 @@ def stage2a_2plane(ctx, st, scb, quant_limit, best0, error_threshold,
         recs_i = {k: v.reshape((4, N) + tuple(v.shape[1:]))[i]
                   for k, v in recs.items()}
         active = cand_act[i] & ~stopped & ~scb["finished"]
+        if trace is not None:
+            trace.passes(recs_i, 1, 2, active, plane_component=comp)
         p2c = torch.full((N,), comp, dtype=torch.int32, device=dev)
         scb, errv = trial.apply_records_2plane(
             scb, recs_i, error_threshold * overshoot, p2c, active)
@@ -256,7 +354,7 @@ def multipart_pcs(ctx) -> tuple:
 def stage2b_one_pc(ctx, st, scb, quant_limit, best_prev, pc: int,
                    error_threshold, overshoot: float,
                    use_kernels: bool = True,
-                   disabled: frozenset = frozenset()):
+                   disabled: frozenset = frozenset(), trace=None):
     """One partition count of the multi-partition search
     (compress.py:533-619): rank the partitionings, try the best few in one
     folded batch, replay the sequential take with the inner early-outs,
@@ -288,6 +386,9 @@ def stage2b_one_pc(ctx, st, scb, quant_limit, best_prev, pc: int,
         recs_i = {k: v.reshape((ntr, N) + tuple(v.shape[1:]))[ti]
                   for k, v in recs.items()}
         ok = valid[:, ti]
+        if trace is not None:
+            trace.passes(recs_i, pc, 1, ok & ~scb["finished"],
+                         partition_index=seeds[:, ti])
         saved = scb["finished"]
         scb = dict(scb)
         scb["finished"] = saved | ~ok
@@ -323,21 +424,25 @@ def finalize_pack(dt, et, scb, aux, profile: int):
 
 
 def compress_symbolic(ctx, texels, use_kernels: bool = True,
-                      disabled: frozenset = frozenset()):
+                      disabled: frozenset = frozenset(), trace=None):
     """Stage 1 -> 2a -> 2b on one chunk of (N, T, 4) float32 texels on
     ctx.device (compress.py:268-286). Returns (scb, aux) before the
-    finalize step."""
+    finalize step. ``trace``: a ``_Trace`` over the chunk's rows, or
+    None."""
     cfg = ctx.config
     kw = {"use_kernels": use_kernels, "disabled": disabled}
-    scb, aux = stage1_1plane(ctx, texels, **kw)
+    scb, aux = stage1_1plane(ctx, texels, **kw, trace=trace)
     st = aux["st"]
     thr, ovs = aux["error_threshold"], aux["overshoot"]
     ql, best0 = aux["quant_limit"], aux["best0"]
     if ctx.encoder_tables().m2_quant.shape[0] > 0:
+        if trace is not None:
+            trace.value("lowest_correl", aux["lowest_correl"])
         idx = torch.nonzero(~scb["finished"] & ~aux["skip2p"])[:, 0]
         if idx.numel():
             sub = stage2a_2plane(ctx, _sub(st, idx), _sub(scb, idx), ql[idx],
-                                 best0[idx], thr[idx], ovs, **kw)
+                                 best0[idx], thr[idx], ovs, **kw,
+                                 trace=trace and trace.sub(idx))
             scb = _scatter(scb, idx, sub)
     pcs = multipart_pcs(ctx)
     best_prev = best0
@@ -348,7 +453,8 @@ def compress_symbolic(ctx, texels, use_kernels: bool = True,
             if idx.numel():
                 sub, bt = stage2b_one_pc(
                     ctx, _sub(st, idx), _sub(scb, idx), ql[idx],
-                    best_prev[idx], pc, thr[idx], ovs, **kw)
+                    best_prev[idx], pc, thr[idx], ovs, **kw,
+                    trace=trace and trace.sub(idx))
                 scb = _scatter(scb, idx, sub)
                 best_this[idx] = bt
         # A skipped count leaves the next one the default baseline.
@@ -357,11 +463,11 @@ def compress_symbolic(ctx, texels, use_kernels: bool = True,
 
 
 def compress_blocks(ctx, texels, use_kernels: bool = True,
-                    disabled: frozenset = frozenset()):
+                    disabled: frozenset = frozenset(), trace=None):
     """Compress one chunk of (N, T, 4) float32 texels on ctx.device to
     (N, 16) uint8 blocks."""
     scb, aux = compress_symbolic(ctx, texels, use_kernels=use_kernels,
-                                 disabled=disabled)
+                                 disabled=disabled, trace=trace)
     return finalize_pack(ctx.torch_decode_tables(), ctx.encoder_tables(),
                          scb, aux, int(ctx.config.profile))
 
@@ -479,8 +585,19 @@ def image_to_blocks(ctx, image, swizzle=(0, 1, 2, 3)) -> np.ndarray:
     return blocks
 
 
+def _trace_positions(tracer, rows, block_dims, shape):
+    """The texel position of each block of ``rows`` (compress.py:1104-1116)
+    for an image of ``shape`` ((H, W, C) or (Z, H, W, C))."""
+    bx, by, bz = block_dims
+    H, W = shape[-3], shape[-2]
+    nx, ny = -(-W // bx), -(-H // by)
+    for gi in rows.tolist():
+        tracer.positions[gi] = ((gi % nx) * bx, ((gi // nx) % ny) * by,
+                                (gi // (nx * ny)) * bz)
+
+
 def compress_image(ctx, image, swizzle=(0, 1, 2, 3), progress_callback=None,
-                   use_kernels: bool = True):
+                   use_kernels: bool = True, tracer=None):
     """Compress an image array to (N, 16) uint8 blocks in raster order.
 
     ``use_kernels=False`` runs the plain PyTorch versions of the kernels on
@@ -489,7 +606,10 @@ def compress_image(ctx, image, swizzle=(0, 1, 2, 3), progress_callback=None,
     once per call (``gather.disabled_kernels``). The call clears the
     context's cancel flag at its start and reads it before each chunk: once
     it is set (``api.compress_cancel``), the blocks of the chunks not
-    started come back as zero bytes (compress.py:1086-1095).
+    started come back as zero bytes (compress.py:1086-1095). ``tracer``
+    (``codec.trace.Tracer``), if given, receives one block node per block
+    with its position, and the pass and candidate nodes of each stage that
+    block ran (compress.py:1104-1116); the blocks are the untraced ones.
     """
     ctx.cancel_requested = False
     disabled = gather.disabled_kernels()
@@ -501,8 +621,14 @@ def compress_image(ctx, image, swizzle=(0, 1, 2, 3), progress_callback=None,
             outs.append(torch.zeros((n - lo, 16), dtype=torch.uint8))
             break
         tex = torch.from_numpy(blocks[lo:lo + CHUNK]).to(ctx.device)
+        trace = None
+        if tracer is not None:
+            trace = _Trace(tracer, np.arange(lo, lo + tex.shape[0]),
+                           ctx.bsd, ctx.config.tune_refinement_limit + 1)
+            _trace_positions(tracer, trace.rows, ctx.block_dims,
+                             np.asarray(image).shape)
         outs.append(compress_blocks(ctx, tex, use_kernels=use_kernels,
-                                    disabled=disabled).cpu())
+                                    disabled=disabled, trace=trace).cpu())
         if progress_callback is not None:
             progress_callback(min(100.0, 100.0 * min(lo + CHUNK, n) / n))
     return torch.cat(outs).numpy()

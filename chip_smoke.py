@@ -119,6 +119,22 @@ non-zero and never prints the last line:
     each as phase 16's (a warm-up crop of whole blocks at the origin,
     256x256 or 30-32^3, held to the plain versions and to the full
     encode), with the launches of each kernel form.
+18. CLI and devices: the main-path texture written as an uncompressed
+    .ktx through the port's own KTX writer, then ``cli.main`` in this
+    process: ``-cl ... 6x6 -medium -repeats 3`` (launches counted around
+    it; its .astc blocks, read back by the port's .astc reader, are phase
+    5's ``api.compress_image`` blocks bit for bit), ``-dl`` to .ktx (phase
+    5's ``api.decompress_image`` output bit for bit) and ``-tl`` to .exr
+    (its printed PSNR phase 5's); phase 8's 1024x1024 HDR centre written
+    as .exr, ``-ch ... -repeats 3`` (phase 8's fused blocks of the centre),
+    ``-dh`` (the API's decode) and ``-th``; the printed coding times,
+    rates and quality lines as one JSON line; ``-dtrace`` on a 256x256
+    crop at 6x6 -medium (one block node per block, a pass node of each
+    block's own partition count, the blocks the untraced ones; the trace's
+    size and host seconds); ``python -m astcenc_torch`` in a subprocess on
+    a 64x64 .ktx (exit code 0); and ``parallel.sharding`` over
+    [cuda:0, cuda:0] on phase 3's 512x512 image (the single-device blocks
+    and decode bit for bit). No -dimage: the card has no Pillow for PNGs.
 
 The fused main paths (phases 5 and 8) must launch K8 no time, as on the
 TPU. The lines before the last are the kernel table as JSON (K1-K4
@@ -795,14 +811,19 @@ def _footprint_fixtures(api, testdata, metrics, decompress, dev):
                "card_identical": ident,
                ("mpsnr_db" if hdr else "psnr_db"): qg, "jax_db": qw,
                "kinds": _block_kinds(decompress, ctx, got)}
-        if ident < 1.0:
+        # The 4-partition fixture (ROADMAP C6) is held to the CPU port too.
+        pc4 = str(fx["name"]).endswith("_pc4")
+        if ident < 1.0 or pc4:
             cpu = api.compress_image(api.context_alloc(cfg, device="cpu"),
                                      img)
             row["cpu_identical"] = float((cpu == want).all(1).mean())
             row["card_vs_cpu"] = float((cpu == got).all(1).mean())
         assert ident >= 0.9 and abs(qg - qw) <= 0.05, row
+        if pc4:
+            assert row["card_vs_cpu"] == 1.0, row
+            assert row["kinds"].get("pc4_1plane", 0) > 0, row
         rows.append(row)
-    assert len(rows) >= 32, f"{len(rows)} footprint fixtures"
+    assert len(rows) >= 33, f"{len(rows)} footprint fixtures"
     return rows
 
 
@@ -1218,6 +1239,161 @@ def _full_features(api, compress_mod, decompress, metrics, testdata,
               f"versions {ident:.4f} identical, vs the full encode's blocks "
               f"there {in_full:.4f} | {smi}", flush=True)
     return form_launches
+
+
+def _cli(cli, argv):
+    """``cli.main(argv)`` on the card with its standard output captured:
+    (exit code, output)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            rc = cli.main(argv)
+        except SystemExit as e:
+            rc = e.code
+    return rc, buf.getvalue()
+
+
+def _printed(out: str) -> dict:
+    """The numbers of the CLI's metric lines ("Coding time", "PSNR
+    (LDR-RGBA)", ...), by label."""
+    got = {}
+    for line in out.splitlines():
+        if ":" in line:
+            label, rest = line.split(":", 1)
+            word = rest.split()
+            if word:
+                try:
+                    got[label.strip()] = float(word[0])
+                except ValueError:
+                    pass
+    return got
+
+
+def _cli_phase(api, compress_mod, decompress, counters, img, blocks, psnr,
+               img_hc, blocks_hc, img_c, ctx, dev, smi, at):
+    """Phase 18: the CLI on the main path and the HDR centre, -dtrace, the
+    entry point and the sharded encode (see the module docstring)."""
+    from astcenc_torch import cli
+    from astcenc_torch.codec.trace import parse_trace
+    from astcenc_torch.io import astc_file, exr, ktx
+    from astcenc_torch.parallel import sharding
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "cli")
+    os.makedirs(work, exist_ok=True)
+
+    def path(name):
+        return os.path.join(work, name)
+
+    t_phase = time.perf_counter()
+    printed = {}
+    # LDR: -cl with -repeats 3, -dl, -tl.
+    ktx.write_ktx_uncompressed(path("in.ktx"), img[None])
+    _reset(*counters)
+    rc, out = _cli(cli, ["-cl", path("in.ktx"), path("out.astc"), "6x6",
+                         "-medium", "-repeats", "3"])
+    launches = _counts(*counters)
+    assert rc == 0, out
+    assert all(launches[k] > 0 for k in ("msearch", "refine", "refine2",
+                                         "psearch")), launches
+    bd, dims, got = astc_file.read_astc(path("out.astc"))
+    assert (bd, dims) == ((6, 6, 1), (SIZE, SIZE, 1)), (bd, dims)
+    assert np.array_equal(got, blocks), "CLI blocks differ from the API's"
+    printed["-cl"] = _printed(out)
+    rc, out = _cli(cli, ["-dl", path("out.astc"), path("dec.ktx")])
+    assert rc == 0, out
+    kind, _, _, dec, _ = ktx.read_ktx(path("dec.ktx"))
+    want = api.decompress_image(ctx, blocks, SIZE, SIZE)
+    assert kind == "raw" and np.array_equal(dec, want), "-dl output differs"
+    rc, out = _cli(cli, ["-tl", path("in.ktx"), path("rt.exr"), "6x6",
+                         "-medium"])
+    assert rc == 0, out
+    printed["-tl"] = _printed(out)
+    cli_psnr = printed["-tl"]["PSNR (LDR-RGBA)"]
+    assert abs(cli_psnr - psnr) < 1e-4, (cli_psnr, psnr)
+    # HDR: phase 8's centre as .exr; -ch with -repeats 3, -dh, -th.
+    exr.write_exr(path("in_h.exr"), img_hc, ncomp=4)
+    _reset(*counters)
+    rc, out = _cli(cli, ["-ch", path("in_h.exr"), path("out_h.astc"), "6x6",
+                         "-medium", "-repeats", "3"])
+    launches_h = _counts(*counters)
+    assert rc == 0, out
+    assert all(launches_h[k] > 0 for k in ("msearch", "psearch",
+                                           "refine_round", "refine_round2",
+                                           "color_pack")), launches_h
+    _, dims_h, got_h = astc_file.read_astc(path("out_h.astc"))
+    assert np.array_equal(got_h, blocks_hc), "-ch blocks differ from the API's"
+    printed["-ch"] = _printed(out)
+    rc, out = _cli(cli, ["-dh", path("out_h.astc"), path("dec_h.exr")])
+    assert rc == 0, out
+    ctx_h = api.context_alloc(api.config_init(
+        api.Profile.HDR_RGB_LDR_A, 6, 6, 1, api.Quality.MEDIUM, 0),
+        device=dev)
+    h, w = img_hc.shape[:2]
+    want_h = api.decompress_image(ctx_h, blocks_hc, w, h, out_type="f32")[0]
+    dec_h, _ = exr.read_exr(path("dec_h.exr"))
+    assert np.array_equal(dec_h, want_h.astype(np.float16).astype(
+        np.float32)), "-dh output differs"
+    rc, out = _cli(cli, ["-th", path("in_h.exr"), path("rt_h.exr"), "6x6",
+                         "-medium"])
+    assert rc == 0, out
+    printed["-th"] = _printed(out)
+    row = {"ldr": {"-cl -repeats 3": printed["-cl"], "launches": launches,
+                   "-tl": printed["-tl"]},
+           "hdr": {"-ch -repeats 3": printed["-ch"], "launches": launches_h,
+                   "-th": printed["-th"]}}
+    print(f"{at()} CLI: {json.dumps(row)} | {smi}", flush=True)
+    # -dtrace on a 256x256 crop.
+    crop = np.ascontiguousarray(img[:CROP, SIZE // 2 - CROP // 2:
+                                    SIZE // 2 + CROP // 2])
+    ktx.write_ktx_uncompressed(path("crop.ktx"), crop[None])
+    t0 = time.perf_counter()
+    rc, out = _cli(cli, ["-cl", path("crop.ktx"), path("crop.astc"), "6x6",
+                         "-medium", "-dtrace", path("trace.json"),
+                         "-silent"])
+    trace_s = time.perf_counter() - t0
+    assert rc == 0, out
+    _, _, traced = astc_file.read_astc(path("crop.astc"))
+    assert np.array_equal(traced, api.compress_image(ctx, crop)), \
+        "traced blocks differ from the untraced ones"
+    nodes = [c for c in parse_trace(path("trace.json"))[2]
+             if c[0] == "block"]
+    assert len(nodes) == traced.shape[0], (len(nodes), traced.shape)
+    const, pc, _ = (t.cpu().numpy() for t in decompress.block_types(
+        ctx.torch_decode_tables(), torch.from_numpy(traced.copy()).to(dev)))
+    for i in np.flatnonzero((pc > 1) & ~const).tolist():
+        assert any(p[0] == "pass" and p[1].get("partition_count") == pc[i]
+                   for p in nodes[i][2]), f"block {i}: no pc {pc[i]} pass"
+    t0 = time.perf_counter()
+    api.compress_image(ctx, crop)
+    untraced_s = time.perf_counter() - t0
+    # The entry point in a process of its own.
+    small = np.ascontiguousarray(img[:64, :64])
+    ktx.write_ktx_uncompressed(path("small.ktx"), small[None])
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "astcenc_torch", "-cl",
+                          path("small.ktx"), path("small.astc"), "6x6",
+                          "-medium", "-silent"], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    main_s = time.perf_counter() - t0
+    assert res.returncode == 0, res.stderr[-2000:]
+    _, _, small_blocks = astc_file.read_astc(path("small.astc"))
+    assert np.array_equal(small_blocks, api.compress_image(ctx, small))
+    # The sharded encode and decode over the card listed twice.
+    tex = compress_mod.image_to_blocks(ctx, img_c)
+    single = api.compress_image(ctx, img_c)
+    sharded = sharding.compress_blocks_sharded(ctx, tex, [dev, dev])
+    assert np.array_equal(sharded, single), "sharded blocks differ"
+    dec_s = sharding.decompress_blocks_sharded(ctx, single, [dev, dev])
+    assert np.array_equal(dec_s, api.decompress_blocks(ctx, single)
+                          .cpu().numpy()), "sharded decode differs"
+    print(f"{at()} CLI -dtrace {CROP}x{CROP} 6x6 -medium: "
+          f"{len(nodes)} block nodes, "
+          f"{os.path.getsize(path('trace.json'))} bytes, {trace_s:.3f} s "
+          f"traced against {untraced_s:.3f} s untraced; python -m "
+          f"astcenc_torch on 64x64: exit 0 in {main_s:.1f} s; sharded "
+          f"over [cuda:0, cuda:0]: {sharded.shape[0]} blocks equal; phase "
+          f"{time.perf_counter() - t_phase:.1f} s | {smi}", flush=True)
 
 
 def main() -> int:
@@ -1901,6 +2077,10 @@ def main() -> int:
     form_launches = _full_features(api, compress_mod, decompress, metrics,
                                    testdata, counters, img, img_h, dev,
                                    args.seed, smi, at)
+
+    # --- 18. CLI and devices ---------------------------------------------
+    _cli_phase(api, compress_mod, decompress, counters, img, blocks, psnr,
+               img_p, held[0], img_c, ctx, dev, smi, at)
 
     meta = {"K1": ("msearch", "astcenc_torch/csrc/msearch.cu",
                    "astcenc_tpu/ops/msearch_pallas.py:281"),

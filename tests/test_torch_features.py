@@ -51,6 +51,9 @@ from astcenc_torch import api as tapi
 from astcenc_torch import testdata
 from astcenc_torch.codec import compress as tcomp
 from astcenc_torch.codec import decompress as tdec
+from astcenc_torch.codec import trial as ttrial
+from astcenc_torch.ops import color_pack as tpack
+from astcenc_torch.ops import recompute as trecompute
 from astcenc_torch.utils import metrics
 
 torch.set_num_threads(2)
@@ -285,6 +288,124 @@ def test_rebuild_fixture_unchanged(tmp_path, name):
     write_fixtures([name], str(tmp_path))
     got, want = np.load(fixture_path(name, str(tmp_path))), np.load(
         fixture_path(name))
+    assert sorted(got.files) == sorted(want.files)
+    for k in want.files:
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+# Block 6 of 4x4_medium_rgbm, the one block of the feature fixtures that is
+# not JAX's: its 2-plane trial for component 3 (M), candidate 2, lane 2 of
+# the round-0 refit when the block is repeated C5_ROWS times.
+C5_FIXTURE = os.path.join(os.path.dirname(FIXTURES), "torch_known",
+                          "rgbm_block6_refit.npz")
+C5_BLOCK, C5_ROWS, C5_LANE = 6, 8, 2
+
+
+def _c5_port_round0():
+    """The port's 2-plane records of block C5_BLOCK (its rows repeated
+    C5_ROWS times, every component trying) and the arguments and results
+    of the round-0 refit and colour pack of lane C5_LANE."""
+    c = CONFIGS["4x4_medium_rgbm"]
+    ctx = tapi.context_alloc(config(tapi, c), device="cpu")
+    tex = np.repeat(tcomp.image_to_blocks(ctx, image(c))[
+        C5_BLOCK:C5_BLOCK + 1], C5_ROWS, 0)
+    _, aux = tcomp.stage1_1plane(ctx, torch.from_numpy(tex))
+    seen = {}
+    refit, pack = (trecompute.recompute_ideal_colors_2planes,
+                   tpack.pack_color_endpoints_ldr)
+
+    def spy(name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            seen.setdefault(name, (args, out))
+            return out
+        return call
+
+    trecompute.recompute_ideal_colors_2planes = spy("refit", refit)
+    tpack.pack_color_endpoints_ldr = spy("pack", pack)
+    try:
+        recs = ttrial.trial2_records(
+            aux["st"], ctx.pass_tables("two"), ctx.config, 1, False,
+            aux["quant_limit"], torch.ones((C5_ROWS, 4), dtype=torch.bool),
+            use_kernels=False)
+    finally:
+        trecompute.recompute_ideal_colors_2planes = refit
+        tpack.pack_color_endpoints_ldr = pack
+    return ({k: v.numpy() for k, v in recs.items()}, seen["refit"],
+            seen["pack"][0], (tex, aux["quant_limit"].numpy()))
+
+
+def write_c5_fixture(path=C5_FIXTURE):
+    """JAX's side of the block: its jitted records, and its refit run
+    eagerly and under ``jax.jit`` on the port's round-0 refit arguments
+    (every lane; lane C5_LANE kept)."""
+    import jax
+    import jax.numpy as jnp
+    from astcenc_tpu import api as japi
+    from astcenc_tpu.codec import compress as jc
+    from astcenc_tpu.ops import recompute as jrecompute
+    c = CONFIGS["4x4_medium_rgbm"]
+    _, (args, _), _, (tex, quant_limit) = _c5_port_round0()
+    jargs = [jnp.asarray(a.numpy()) if torch.is_tensor(a) else a
+             for a in args]
+    eager = jrecompute.recompute_ideal_colors_2planes(*jargs)
+    jit = jax.jit(jrecompute.recompute_ideal_colors_2planes,
+                  static_argnums=4)(*jargs)
+    jctx = japi.context_alloc(config(japi, c))
+    cfgs = jc._CfgStatic(jctx.config)
+    st = jc.make_block_state(jnp.asarray(tex), cfgs.channel_weights, 1)
+    recs = jc._trial2_recs_jit(
+        japi._enc_key(jctx.bsd), cfgs, 1, False, st,
+        jnp.ones((C5_ROWS, 4), bool), jnp.asarray(quant_limit))
+    L = C5_LANE
+    np.savez(path, **{f"eager_{k}": np.asarray(eager[k])[L]
+                      for k in ("ep0", "ep1", "rgbs")},
+             **{f"jit_{k}": np.asarray(jit[k])[L]
+                for k in ("ep0", "ep1", "rgbs")},
+             jax_vals=np.asarray(recs["vals"])[0],
+             jax_err=np.asarray(recs["err"])[0])
+
+
+def test_rgbm_block6_is_jax_jit_rounding():
+    """The one RGBM block that is not JAX's (block 6 of 4x4_medium_rgbm,
+    15 of 16) parts from JAX in the round-0 refit of its 2-plane trial for
+    component 3, candidate 2. The port's refit there is JAX's refit run
+    eagerly, bit for bit; JAX's jitted refit ends each RGB scale value one
+    float32 step higher (64121.5 against 64121.496 and so on), and the
+    colour pack's G scale sits on a rounding tie, so JAX packs 236 and the
+    port 235. A last-bit difference of JAX's compilation, not a port
+    fault: every record before candidate 2 agrees."""
+    recs, (args, out), pack_args, _ = _c5_port_round0()
+    fx = np.load(C5_FIXTURE)
+    L = C5_LANE
+    for k in ("ep0", "ep1", "rgbs"):
+        np.testing.assert_array_equal(out[k][L].numpy(), fx[f"eager_{k}"])
+    steps = (out["rgbs"][L].numpy().view(np.int32)
+             - fx["jit_rgbs"].view(np.int32))
+    assert steps.tolist() == [-1, -1, -1, 0], steps
+    ep0, ep1, _, fmt_req, cq = (a[L:L + 1] for a in pack_args)
+    fmt_p, v_p = tpack.pack_color_endpoints_ldr(ep0, ep1,
+                                                out["rgbs"][L:L + 1],
+                                                fmt_req, cq)
+    fmt_j, v_j = tpack.pack_color_endpoints_ldr(
+        ep0, ep1, torch.from_numpy(fx["jit_rgbs"][None]), fmt_req, cq)
+    # The records: [r0-pre, r0-post, r1-post, r2-post] per candidate.
+    assert int(fmt_p[0]) == int(fmt_j[0]) == 10
+    np.testing.assert_array_equal(v_p[0].numpy(), recs["vals"][0, 8, 0])
+    np.testing.assert_array_equal(v_j[0].numpy(), fx["jax_vals"][8, 0])
+    assert (v_j - v_p)[0].tolist() == [0, 1, 0, 0, 0, 0, 0, 0]
+    np.testing.assert_array_equal(recs["vals"][0, :8], fx["jax_vals"][:8])
+    np.testing.assert_array_equal(recs["err"][0, :8], fx["jax_err"][:8])
+    g = float(out["rgbs"][L, 1]) / 257.0
+    print(f"block 6: G scale {g!r} (port) and "
+          f"{float(fx['jit_rgbs'][1]) / 257.0!r} (JAX jitted) over 257")
+
+
+@pytest.mark.slow
+def test_rebuild_c5_fixture_unchanged(tmp_path):
+    path = str(tmp_path / "c5.npz")
+    write_c5_fixture(path)
+    got, want = np.load(path), np.load(C5_FIXTURE)
     assert sorted(got.files) == sorted(want.files)
     for k in want.files:
         np.testing.assert_array_equal(got[k], want[k])

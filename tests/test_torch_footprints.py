@@ -17,7 +17,10 @@ the ``a_scale_radius`` override and JAX's blocks. The configurations:
   HDR alpha);
 - R: 6x6 -medium with ``a_scale_radius = 2`` on an image with transparent
   holes (``testdata.alpha_holes``): blocks inside a hole are masked, those
-  at its edge are not.
+  at its edge are not;
+- C: 4x4 -medium on a 32x32 image with transparent holes (64 blocks) on
+  which JAX picks four partitions for a block (``4x4_medium_pc4``, the
+  first fixture with a 4-partition block; ``test_four_partitions``).
 
 The images hold 16 blocks, 9 at -exhaustive (``BLOCKS``). The tests ask of
 the port's blocks what tests/test_torch_main.py asks at 6x6 -medium: at
@@ -67,19 +70,21 @@ def _configs():
     """name: dict(kind, profile, bx, by, preset, radius, shape, seed)."""
     out = {}
 
-    def add(group, bx, by, preset, profile="ldr", radius=0, edge=0):
+    def add(group, bx, by, preset, profile="ldr", radius=0, edge=0,
+            suffix="", seed=None):
         name = f"{bx}x{by}_{preset}" + ("" if profile == "ldr"
                                         else f"_{profile}")
         if radius:
             name += f"_r{radius}"
+        name += suffix
         nb = BLOCKS.get(preset, 4)
         kind = ("hdr" if profile != "ldr"
-                else "ldr_holes" if radius else "ldr")
+                else "ldr_holes" if radius or suffix else "ldr")
         shape = (nb * by - edge, nb * bx - edge) if kind != "ldr_holes" \
             else (8 * by, 8 * bx)
         out[name] = dict(group=group, kind=kind, profile=profile, bx=bx,
                          by=by, preset=preset, radius=radius, shape=shape,
-                         seed=100 + len(out))
+                         seed=100 + len(out) if seed is None else seed)
 
     for bx, by in LEGAL_2D_SIZES:
         add("F", bx, by, "fastest", edge=1)
@@ -90,6 +95,7 @@ def _configs():
     add("H", 4, 4, "thorough", "ch")
     add("H", 12, 12, "medium", "cH")
     add("R", 6, 6, "medium", radius=2)
+    add("C", 4, 4, "medium", suffix="_pc4", seed=4)
     return out
 
 
@@ -188,10 +194,10 @@ def _psnr(a, b):
 
 def test_configurations_cover_footprints_and_presets():
     """Every legal 2D footprint at -fastest, the 4 x 4 grid of footprints
-    and presets but the fixtured 6x6 -medium, two HDR and one alpha-scale
-    configuration: 32 fixtures, each committed."""
+    and presets but the fixtured 6x6 -medium, two HDR, one alpha-scale
+    and one 4-partition configuration: 33 fixtures, each committed."""
     groups = [c["group"] for c in CONFIGS.values()]
-    assert [groups.count(g) for g in "FPHR"] == [14, 15, 2, 1]
+    assert [groups.count(g) for g in "FPHRC"] == [14, 15, 2, 1, 1]
     for name in CONFIGS:
         assert os.path.exists(fixture_path(name)), name
 
@@ -218,6 +224,24 @@ def test_alpha_scale_masks_blocks():
           f"{int(edge.sum())} with transparent texels kept")
     assert masked.sum() >= 2 and edge.sum() >= 2
     assert (holes.all(1) | ~masked).all()
+
+
+def test_four_partitions():
+    """JAX's blocks of ``4x4_medium_pc4`` hold a 4-partition block, and
+    the port's encode matches them (``test_footprint_matches_jax``) with a
+    4-partition block of its own."""
+    name = "4x4_medium_pc4"
+    c = CONFIGS[name]
+    ctx = tapi.context_alloc(config(tapi, c), device="cpu")
+    want = np.load(fixture_path(name))["blocks"]
+    got = tapi.compress_image(ctx, image(c))
+    counts = []
+    for blocks in (want, got):
+        const, pc, _ = (t.numpy() for t in tdec.block_types(
+            ctx.torch_decode_tables(), torch.from_numpy(blocks)))
+        counts.append(np.nonzero((pc == 4) & ~const)[0].tolist())
+    print(f"{name}: 4-partition blocks JAX {counts[0]}, port {counts[1]}")
+    assert counts[0] and counts[1]
 
 
 @pytest.mark.slow

@@ -13,6 +13,7 @@ from astcenc_tpu import api as japi
 from astcenc_tpu.codec import trial as jtrial
 from astcenc_torch import _host
 from astcenc_torch import api as tapi
+from astcenc_torch import testdata
 
 torch.set_num_threads(1)
 
@@ -100,10 +101,33 @@ def test_context_defaults_to_the_card():
     assert tapi.context_alloc(cfg, device="cpu").device.type == "cpu"
 
 
+@pytest.mark.parametrize("kw", [{"args": (4,)},
+                                {"kwargs": {"thread_count": 4}}])
+def test_context_alloc_takes_thread_count(kw):
+    """``context_alloc(config, thread_count=0, *, device)`` as the JAX
+    package's ``context_alloc(config, thread_count=0)``: the thread count,
+    second or by name, is taken and ignored (not read as a device), and the
+    context encodes a 16x16 image as one made without it."""
+    cfg = tapi.config_init(tapi.Profile.LDR, 4, 4, 1, tapi.Quality.FASTEST,
+                           0)
+    ctx = tapi.context_alloc(cfg, *kw.get("args", ()),
+                             **kw.get("kwargs", {}), device="cpu")
+    assert ctx.device == torch.device("cpu")
+    img = testdata.synthetic_image(16, 16, 7)
+    blocks = tapi.compress_image(ctx, img)
+    assert blocks.shape == (16, 16)
+    np.testing.assert_array_equal(blocks, tapi.compress_image(
+        tapi.context_alloc(cfg, device="cpu"), img))
+    with pytest.raises(TypeError):
+        tapi.context_alloc(cfg, 4, "cpu")
+
+
 def test_port_imports_without_jax():
-    """Importing the port, its API, its test data and every module of
-    codec/, ops/ and utils/ (and building tables) loads jax under no name
-    and no module whose file lies under astcenc_tpu/."""
+    """Importing the port, its API, its CLI, its test data and every
+    module of codec/, io/, ops/, parallel/ and utils/ (and building tables)
+    loads jax under no name and no module whose file lies under
+    astcenc_tpu/. ``astcenc_torch.__main__`` runs the CLI, so it is not
+    imported."""
     import os
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ref = os.path.join(root, "astcenc_tpu") + os.sep
@@ -112,9 +136,11 @@ def test_port_imports_without_jax():
         "sys.modules['jax'] = None\n"
         "import astcenc_torch, astcenc_torch.api as api\n"
         "import astcenc_torch.codec, astcenc_torch.ops, astcenc_torch.utils\n"
+        "import astcenc_torch.io, astcenc_torch.parallel\n"
+        "import astcenc_torch.cli, astcenc_torch.codec.trace\n"
         "import astcenc_torch.testdata\n"
         "for pkg in (astcenc_torch.codec, astcenc_torch.ops, "
-        "astcenc_torch.utils):\n"
+        "astcenc_torch.utils, astcenc_torch.io, astcenc_torch.parallel):\n"
         "    for m in pkgutil.iter_modules(pkg.__path__):\n"
         "        importlib.import_module(pkg.__name__ + '.' + m.name)\n"
         "cfg = api.config_init(api.Profile.LDR, 6, 6, 1, "

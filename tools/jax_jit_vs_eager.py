@@ -10,6 +10,13 @@ number of direction values whose float32 bits differ, and the same count
 between the eager run and the port's CPU version. XLA picks its own
 summation order when it compiles, so the reference has no one order the
 port could copy; the port is held to JAX's committed blocks instead.
+
+A second line does the same for ``astcenc_tpu.ops.recompute.
+recompute_ideal_colors_2planes`` on the round-0 refit arguments of the RGBM
+block that the port encodes otherwise than JAX (block 6 of the fixture
+``4x4_medium_rgbm``, ``tests/test_torch_features.py::
+test_rgbm_block6_is_jax_jit_rounding``): the float32 values that differ
+jitted against eager, and the port's CPU refit against eager.
 """
 
 import json
@@ -46,6 +53,26 @@ def main() -> int:
         "port_cpu_vs_eager_differ": int((port.numpy().view(np.int32)
                                          != e).sum()),
         "jax": jax.__version__, "device": "cpu"}))
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tests"))
+    import test_torch_features as features
+    from astcenc_tpu.ops import recompute as jrecompute
+    _, (args, port), _, _ = features._c5_port_round0()
+    jargs = [jnp.asarray(a.numpy()) if torch.is_tensor(a) else a
+             for a in args]
+    eager = jrecompute.recompute_ideal_colors_2planes(*jargs)
+    jitted = jax.jit(jrecompute.recompute_ideal_colors_2planes,
+                     static_argnums=4)(*jargs)
+
+    def differ(a, b):
+        return int(sum((np.asarray(a[k]).view(np.int32)
+                        != np.asarray(b[k]).view(np.int32)).sum()
+                       for k in ("ep0", "ep1", "rgbs")))
+    print(json.dumps({
+        "rgbm_block6_refit_values": 3 * int(port["ep0"].numel()),
+        "jit_vs_eager_differ": differ(jitted, eager),
+        "port_cpu_vs_eager_differ": differ(
+            {k: v.numpy() for k, v in port.items()}, eager)}))
     return 0
 
 
