@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import config as host_config
+from .. import obs
 from ..ops import gather
 from ..ops import softfloat as sf
 from ..ops import texel_sum as ts
@@ -82,8 +83,12 @@ def _lowest_correlation(texels, channel_weight):
     if torch.is_tensor(channel_weight):
         weight = (sf.sum4(channel_weight) / 4.0)[:, None]     # (N, 1)
     else:
-        weight = sf.sum4(torch.tensor(channel_weight, dtype=torch.float32,
-                                      device=texels.device)) / 4.0
+        wait = obs.on and obs.sync("compress.correlation_weight", "h2d")
+        cw = torch.tensor(channel_weight, dtype=torch.float32,
+                          device=texels.device)
+        if wait:
+            obs.end(wait, cw.nbytes)
+        weight = sf.sum4(cw) / 4.0
     T = texels.shape[1]
     rpt = 1.0 / torch.clamp(weight * T, min=1e-7)
     s = ts.block_sum(texels) * weight
@@ -226,8 +231,11 @@ def stage1_1plane(ctx, texels, use_kernels: bool = True,
     if profile >= int(Profile.HDR_RGB_LDR_A):
         # FP16 constant colour (reference :1224-1231): LNS lanes through
         # fp16, the UNORM16 alpha of profile 2 as a value in [0, 1].
+        wait = obs.on and obs.sync("compress.lns_lanes", "h2d")
         lns = torch.tensor([True, True, True, profile == int(Profile.HDR)],
                            device=dev)
+        if wait:
+            obs.end(wait, lns.nbytes)
         const_color = torch.where(
             lns, sf.lns_to_sf16(tex0.to(torch.int32)),
             sf.float_to_float16(sf.div(tex0, 65535.0)))
@@ -423,6 +431,16 @@ def finalize_pack(dt, et, scb, aux, profile: int):
     return physical.symbolic_to_physical_batch(dt, scb)
 
 
+def _nonzero(mask, site: str):
+    """Indices of the set entries of a device mask; the host waits on the
+    device for their count."""
+    wait = obs.on and obs.sync(site)
+    idx = torch.nonzero(mask)[:, 0]
+    if wait:
+        obs.end(wait)
+    return idx
+
+
 def compress_symbolic(ctx, texels, use_kernels: bool = True,
                       disabled: frozenset = frozenset(), trace=None):
     """Stage 1 -> 2a -> 2b on one chunk of (N, T, 4) float32 texels on
@@ -431,25 +449,38 @@ def compress_symbolic(ctx, texels, use_kernels: bool = True,
     None."""
     cfg = ctx.config
     kw = {"use_kernels": use_kernels, "disabled": disabled}
+    N = texels.shape[0]
+    sp = obs.on and obs.begin("stage1", blocks=N)
     scb, aux = stage1_1plane(ctx, texels, **kw, trace=trace)
+    if sp:
+        obs.end(sp)
+        obs.count("blocks.stage1", N)
+        obs.count_device("blocks.const", aux["is_const"].sum())
     st = aux["st"]
     thr, ovs = aux["error_threshold"], aux["overshoot"]
     ql, best0 = aux["quant_limit"], aux["best0"]
     if ctx.encoder_tables().m2_quant.shape[0] > 0:
         if trace is not None:
             trace.value("lowest_correl", aux["lowest_correl"])
-        idx = torch.nonzero(~scb["finished"] & ~aux["skip2p"])[:, 0]
+        sp = obs.on and obs.begin("stage2a")
+        idx = _nonzero(~scb["finished"] & ~aux["skip2p"],
+                       "compress.stage2a.nonzero")
         if idx.numel():
             sub = stage2a_2plane(ctx, _sub(st, idx), _sub(scb, idx), ql[idx],
                                  best0[idx], thr[idx], ovs, **kw,
                                  trace=trace and trace.sub(idx))
             scb = _scatter(scb, idx, sub)
+        if sp:
+            sp.attrs["blocks"] = idx.numel()
+            obs.end(sp)
+            obs.count("blocks.stage2a", idx.numel())
     pcs = multipart_pcs(ctx)
     best_prev = best0
     for pc in range(2, cfg.tune_partition_count_limit + 1):
         best_this = torch.full_like(best0, ERROR_CALC_DEFAULT)
         if pc in pcs:
-            idx = torch.nonzero(~scb["finished"])[:, 0]
+            sp = obs.on and obs.begin("stage2b", pc=pc)
+            idx = _nonzero(~scb["finished"], "compress.stage2b.nonzero")
             if idx.numel():
                 sub, bt = stage2b_one_pc(
                     ctx, _sub(st, idx), _sub(scb, idx), ql[idx],
@@ -457,6 +488,10 @@ def compress_symbolic(ctx, texels, use_kernels: bool = True,
                     trace=trace and trace.sub(idx))
                 scb = _scatter(scb, idx, sub)
                 best_this[idx] = bt
+            if sp:
+                sp.attrs["blocks"] = idx.numel()
+                obs.end(sp)
+                obs.count(f"blocks.stage2b.pc{pc}", idx.numel())
         # A skipped count leaves the next one the default baseline.
         best_prev = best_this
     return scb, aux
@@ -468,8 +503,12 @@ def compress_blocks(ctx, texels, use_kernels: bool = True,
     (N, 16) uint8 blocks."""
     scb, aux = compress_symbolic(ctx, texels, use_kernels=use_kernels,
                                  disabled=disabled, trace=trace)
-    return finalize_pack(ctx.torch_decode_tables(), ctx.encoder_tables(),
-                         scb, aux, int(ctx.config.profile))
+    sp = obs.on and obs.begin("finalize", blocks=texels.shape[0])
+    out = finalize_pack(ctx.torch_decode_tables(), ctx.encoder_tables(),
+                        scb, aux, int(ctx.config.profile))
+    if sp:
+        obs.end(sp)
+    return out
 
 
 def blockify(data: np.ndarray, block_dims) -> np.ndarray:
@@ -613,22 +652,55 @@ def compress_image(ctx, image, swizzle=(0, 1, 2, 3), progress_callback=None,
     """
     ctx.cancel_requested = False
     disabled = gather.disabled_kernels()
+    sp = obs.on and obs.call("compress_image")
+    pp = obs.on and obs.begin("image_to_blocks")
     blocks = image_to_blocks(ctx, image, swizzle)
+    if pp:
+        obs.end(pp)
     n = blocks.shape[0]
+    if sp:
+        shape = np.shape(image)
+        sp.attrs.update(texels=int(np.prod(shape[:-1])), blocks=n,
+                        chunks=-(-n // CHUNK))
     outs = []
     for lo in range(0, n, CHUNK):
         if ctx.cancel_requested:
             outs.append(torch.zeros((n - lo, 16), dtype=torch.uint8))
             break
-        tex = torch.from_numpy(blocks[lo:lo + CHUNK]).to(ctx.device)
+        cp = obs.on and obs.begin("chunk", first=lo,
+                                  blocks=min(CHUNK, n - lo))
+        tex = _copy(torch.from_numpy(blocks[lo:lo + CHUNK]), ctx.device,
+                    "h2d")
         trace = None
         if tracer is not None:
             trace = _Trace(tracer, np.arange(lo, lo + tex.shape[0]),
                            ctx.bsd, ctx.config.tune_refinement_limit + 1)
             _trace_positions(tracer, trace.rows, ctx.block_dims,
                              np.asarray(image).shape)
-        outs.append(compress_blocks(ctx, tex, use_kernels=use_kernels,
-                                    disabled=disabled, trace=trace).cpu())
+        out = compress_blocks(ctx, tex, use_kernels=use_kernels,
+                              disabled=disabled, trace=trace)
+        outs.append(_copy(out, "cpu", "d2h"))
+        if cp:
+            obs.end(cp)
         if progress_callback is not None:
             progress_callback(min(100.0, 100.0 * min(lo + CHUNK, n) / n))
-    return torch.cat(outs).numpy()
+    ap = obs.on and obs.begin("assemble")
+    out = torch.cat(outs).numpy()
+    if ap:
+        obs.end(ap)
+    if sp:
+        obs.end(sp)
+    return out
+
+
+def _copy(t, device, way: str):
+    """``t`` on ``device``: the chunk's blocking copy of its texels to the
+    device ("h2d") or of its blocks back ("d2h"), in a span of its own."""
+    if not obs.on:
+        return t.to(device)
+    sp = obs.begin(way, bytes=t.nbytes)
+    wait = obs.sync(f"compress.chunk_{way}", way)
+    out = t.to(device)
+    obs.end(wait, t.nbytes)
+    obs.end(sp)
+    return out

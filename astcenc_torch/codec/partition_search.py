@@ -15,6 +15,7 @@ import types
 import numpy as np
 import torch
 
+from .. import obs
 from ..ops import ideal as ideal_ops
 from ..ops import psearch as psearch_ops
 from ..ops import softfloat as sf
@@ -81,7 +82,10 @@ def kmeans(texels, cw, texel_count: int, partition_count: int):
     if torch.is_tensor(cw):
         cwt, cwk = cw[:, None, :], cw[:, None, None, :]
     else:
+        wait = obs.on and obs.sync("partition_search.channel_weight", "h2d")
         cwt = cwk = torch.tensor(cw, dtype=torch.float32, device=dev)
+        if wait:
+            obs.end(wait, cwt.nbytes)
     ni = torch.arange(N, device=dev)
 
     def dist_to(center):

@@ -15,6 +15,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import obs
 from ..tables import ise, quant
 from .decompress import (C_QUINT_PAD, C_SLOTS, C_TRIT_PAD, W_QUINT_PAD,
                          W_SLOTS, W_TRIT_PAD)
@@ -137,7 +138,11 @@ def symbolic_to_physical_batch(t, scb) -> torch.Tensor:
     w_class = t.w_class[pk]
 
     # --- Weight stream --------------------------------------------------------
-    lm1 = torch.from_numpy(_LEVELS_M1).to(dev)[wq.to(i64)][:, None]
+    wait = obs.on and obs.sync("physical.weight_levels", "h2d")
+    levels = torch.from_numpy(_LEVELS_M1).to(dev)
+    if wait:
+        obs.end(wait, levels.nbytes)
+    lm1 = levels[wq.to(i64)][:, None]
     qw1 = torch.floor(scb["weights"].float() / 64.0 * lm1 + 0.5).to(i64)
     qw2 = torch.floor(scb["weights2"].float() / 64.0 * lm1 + 0.5).to(i64)
     srow = scram[wq.to(i64)]                                  # (N, 32)
@@ -224,10 +229,16 @@ def symbolic_to_physical_batch(t, scb) -> torch.Tensor:
         const_u16 = scb["const_u16"]
         const_f16 = scb["const_f16"]
         ccol = scb["constant_color"]
+        wait = obs.on and obs.sync("physical.void_extent_u16", "h2d")
         head_u16 = torch.tensor([0xFC, 0xFD] + [0xFF] * 6, dtype=torch.uint8,
                                 device=dev)
+        if wait:
+            obs.end(wait, head_u16.nbytes)
+        wait = obs.on and obs.sync("physical.void_extent_f16", "h2d")
         head_f16 = torch.tensor([0xFC] + [0xFF] * 7, dtype=torch.uint8,
                                 device=dev)
+        if wait:
+            obs.end(wait, head_f16.nbytes)
         cc = torch.stack([ccol & 0xFF, (ccol >> 8) & 0xFF], -1).reshape(N, 8)
         head = torch.where(const_f16[:, None], head_f16, head_u16)
         cblock = torch.cat([head, cc.to(torch.uint8)], 1)

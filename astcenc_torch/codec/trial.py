@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import config as host_config
+from .. import obs
 from ..tables import quant
 from ..ops import angular as ang
 from ..ops import color_pack_hdr as cph
@@ -361,7 +362,10 @@ def _hdr_rounds_1plane(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
     counts = pmask.sum(1)
     e0 = ep0.repeat_interleave(C, 0)
     e1 = ep1.repeat_interleave(C, 0)
+    wait = obs.on and obs.sync("trial.big_1plane", "h2d")
     big = torch.tensor(refine_ops._BIG, device=dev)
+    if wait:
+        obs.end(wait, big.nbytes)
 
     def rnd(grid, alive, d0, d1, ncolors):
         return refine_ops.refine_round_1plane(
@@ -426,7 +430,10 @@ def _hdr_rounds_2plane(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
     p2c_f = p2c.repeat_interleave(C, 0)
     e0 = ep0.repeat_interleave(C, 0)
     e1 = ep1.repeat_interleave(C, 0)
+    wait = obs.on and obs.sync("trial.big_2plane", "h2d")
     big = torch.tensor(refine_ops._BIG, device=dev)
+    if wait:
+        obs.end(wait, big.nbytes)
 
     def rnd(g1, g2, alive, d0, d1, ncolors):
         return refine_ops.refine_round_2plane(

@@ -26,6 +26,7 @@ import ctypes
 import numpy as np
 import torch
 
+from .. import obs
 from ..tables import ise
 from . import _build
 from . import color_unquant as cuq
@@ -33,9 +34,6 @@ from . import gather
 from . import softfloat as sf
 
 _BIG = 1e30
-
-#: Launches of the colour pack kernel (the plain version does not count).
-launches = 0
 
 
 class _Q:
@@ -91,7 +89,13 @@ def _quantize_rgb(c0, c1, q: _Q):
     o0, o1 = ev(c0, c1)
     done = sf.sum3(o0) <= sf.sum3(o1)
     step, K = 0, 4                             # steps taken; this pass's
-    while not bool(done.all()):
+    while True:
+        wait = obs.on and obs.sync("color_pack.rgb_steps")
+        more = not bool(done.all())
+        if wait:
+            obs.end(wait)
+        if not more:
+            break
         a, b = [], []
         for _ in range(K):
             c0 = c0 - np.float32(0.2)
@@ -406,7 +410,6 @@ def pack_cuda(profile: int, ep0, ep1, rgbs, rgbo, req_fmt, quant_level):
     alone for profiles 0 and 1, where rgbo may be None). ep0, ep1, rgbs,
     rgbo (B, 4) float32 and req_fmt, quant_level (B,) int32, contiguous
     CUDA tensors. Returns (fmt (B,), vals (B, 8)) int32."""
-    global launches
     B = ep0.shape[0]
     f32, i32 = torch.float32, torch.int32
     hdr = profile >= cuq.PRF_HDR_RGB_LDR_A
@@ -429,7 +432,8 @@ def pack_cuda(profile: int, ep0, ep1, rgbs, rgbo, req_fmt, quant_level):
             raise RuntimeError("color_pack kernel launch failed: "
                                + _build.load("color_pack").astc_error_string(
                                    rc).decode())
-        launches += 1
+        if obs.on:
+            obs.count("launch.color_pack")
     return fmt, vals
 
 

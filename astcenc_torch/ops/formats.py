@@ -14,6 +14,7 @@ import itertools
 import numpy as np
 import torch
 
+from .. import obs
 from . import color_unquant as cuq
 from . import ideal as ideal_ops
 from . import softfloat as sf
@@ -35,7 +36,10 @@ def _cw_parts(channel_weight, device):
     if torch.is_tensor(channel_weight):
         cw = channel_weight
         return cw[:, None, :3], cw[:, 3:4], sf.sum3(cw)[:, None]
+    wait = obs.on and obs.sync("formats.channel_weight", "h2d")
     cw = torch.tensor(channel_weight, dtype=torch.float32, device=device)
+    if wait:
+        obs.end(wait, cw.nbytes)
     return cw[:3], cw[3], sf.sum3(cw)
 
 
@@ -49,7 +53,10 @@ def encoding_choice_errors(texels, pmask, ep0, ep1, channel_weight,
     rgb_mask = (1, 1, 1, 0)
     avg, dirv = ideal_ops.avgs_and_dirs(texels, pmask, rgb_mask)
     uncor_b = ideal_ops.normalize_safe(dirv, rgb_mask)
+    wait = obs.on and obs.sync("formats.rgb_mask", "h2d")
     m3 = torch.tensor([1, 1, 1, 0.0], device=dev)
+    if wait:
+        obs.end(wait, m3.nbytes)
     samec_b = ideal_ops.normalize_safe(avg * m3, rgb_mask)
     unit3 = m3 / float(np.sqrt(3.0))
 
@@ -112,8 +119,14 @@ def color_error_tables_ldr(eci, ep0, ep1, counts, channel_weight):
     oe_rgb_base = torch.where(eci["can_offset_encode"], 0.25, 1.0)
 
     qv = np.arange(QUANT_6, 21)
+    wait = obs.on and obs.sync("formats.baseline_quant_error", "h2d")
     bq = torch.from_numpy(_BASELINE_QUANT_ERROR).to(dev)
+    if wait:
+        obs.end(wait, bq.nbytes)
+    wait = obs.on and obs.sync("formats.offset_encode_levels", "h2d")
     hi_oe = torch.from_numpy(qv >= 19).to(dev)
+    if wait:
+        obs.end(wait, hi_oe.nbytes)
     oe_rgba = torch.where(hi_oe, 1.0, oe_rgba_base[..., None])
     oe_rgb = torch.where(hi_oe, 1.0, oe_rgb_base[..., None])
     qe_rgb = base_rgb[..., None] * bq
@@ -144,8 +157,12 @@ def color_error_tables_ldr(eci, ep0, ep1, counts, channel_weight):
     pad = tuple(counts.shape) + (QUANT_6, 4)
     be = torch.cat([torch.full(pad, ERROR_CALC_DEFAULT, device=dev), be_hi],
                    -2)
+    wait = obs.on and obs.sync("formats.ldr_formats", "h2d")
     fm_lo = torch.tensor([cuq.FMT_LUMINANCE, cuq.FMT_RGB_SCALE, cuq.FMT_RGB,
-                          cuq.FMT_RGBA], dtype=i32, device=dev).expand(pad)
+                          cuq.FMT_RGBA], dtype=i32, device=dev)
+    if wait:
+        obs.end(wait, fm_lo.nbytes)
+    fm_lo = fm_lo.expand(pad)
     return be, torch.cat([fm_lo, fm_hi], -2)
 
 
@@ -206,7 +223,10 @@ def color_error_tables_hdr(eci, ep0, ep1, counts, channel_weight,
     mode23mult = torch.where(lumdif < 960, 4.0,
                              torch.where(lumdif < 3968, 16.0, 128.0)) * 0.0005
 
+    wait = obs.on and obs.sync("formats.baseline_quant_error_hdr", "h2d")
     bq = torch.from_numpy(_BASELINE_QUANT_ERROR[8 - QUANT_6:]).to(dev)
+    if wait:
+        obs.end(wait, bq.nbytes)
     base_q = bq * psize[..., None]                         # (N, P, 13)
     rgb_q = ew_rgbsum[..., None] * base_q * 2.0
     rgba_q = rgb_q + cw_a[..., None] * base_q * 2.0
@@ -222,12 +242,15 @@ def color_error_tables_hdr(eci, ep0, ep1, counts, channel_weight,
     pad = tuple(counts.shape) + (8, 4)
     be = torch.cat([torch.full(pad, ERROR_CALC_DEFAULT, device=dev), be_hi],
                    -2)
+    wait = obs.on and obs.sync("formats.hdr_formats", "h2d")
     fm = torch.tensor([cuq.FMT_HDR_LUMINANCE_LARGE_RANGE,
                        cuq.FMT_HDR_RGB_SCALE, cuq.FMT_HDR_RGB,
                        cuq.FMT_HDR_RGBA if encode_hdr_alpha
                        else cuq.FMT_HDR_RGB_LDR_ALPHA], dtype=torch.int32,
-                      device=dev).expand(tuple(counts.shape) + (21, 4))
-    return be, fm
+                      device=dev)
+    if wait:
+        obs.end(wait, fm.nbytes)
+    return be, fm.expand(tuple(counts.shape) + (21, 4))
 
 
 def combine_partitions(be, fm, pc: int):

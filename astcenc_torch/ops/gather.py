@@ -41,11 +41,9 @@ import os
 import numpy as np
 import torch
 
+from .. import obs
 from ..tables import ise, quant
 from . import _build
-
-#: Launches of kernel K8 (the plain version does not count).
-launches_rows = 0
 
 
 def disabled_kernels() -> frozenset:
@@ -170,7 +168,6 @@ def row_lookup_cuda(rows, idx):
     contiguous, on one CUDA device; raises on anything else. The call is
     host-bound (PERF.md), so the checks are one expression of attribute
     reads, and the output is allocated once, in its final shape."""
-    global launches_rows
     nb = idx.dim() - 1
     tail = rows.shape[nb + 1:]
     if not (rows.is_cuda and idx.is_cuda and rows.dtype in _ROW_DTYPES
@@ -190,7 +187,8 @@ def row_lookup_cuda(rows, idx):
             raise RuntimeError("row_gather kernel launch failed: "
                                + _build.load("row_gather").astc_error_string(
                                    rc).decode())
-        launches_rows += 1
+        if obs.on:
+            obs.count("launch.row_gather")
     return out
 
 

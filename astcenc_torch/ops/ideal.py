@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs
 from . import softfloat as sf
 from .texel_sum import masked_sum
 
@@ -30,8 +31,11 @@ def block_channel_weights(channel_weight, cw_scale):
     csrc/refine_common.cuh). A scale of 1 gives the tuple's values."""
     if cw_scale is None:
         return channel_weight
+    wait = obs.on and obs.sync("ideal.channel_weight", "h2d")
     cw = torch.tensor(channel_weight, dtype=torch.float32,
                       device=cw_scale.device)
+    if wait:
+        obs.end(wait, cw.nbytes)
     return torch.stack([cw_scale * cw[0], cw_scale * cw[1], cw_scale * cw[2],
                         cw[3].expand_as(cw_scale)], 1)
 
@@ -43,7 +47,11 @@ def partition_onehot(pot: torch.Tensor) -> torch.Tensor:
 
 
 def _cm(comp_mask, device):
-    return torch.tensor(comp_mask, dtype=torch.float32, device=device)
+    wait = obs.on and obs.sync("ideal.comp_mask", "h2d")
+    cm = torch.tensor(comp_mask, dtype=torch.float32, device=device)
+    if wait:
+        obs.end(wait, cm.nbytes)
+    return cm
 
 
 def partition_means(texels, pmask):

@@ -43,6 +43,7 @@ import ctypes
 import numpy as np
 import torch
 
+from .. import obs
 from . import _build
 from . import angular as ang
 from . import formats as fmts
@@ -53,9 +54,6 @@ QUANT_LEVELS_M1 = np.array([1, 2, 3, 4, 5, 7, 9, 11, 15, 19, 23, 31],
                            dtype=np.float32)
 META_COLS = 40
 MAX_C = 8
-
-#: Launches of the CUDA kernel (the plain version does not count).
-launches = 0
 
 
 def make_mode_meta(quant_m, dm_m, weight_bits, mode_index, free_bits: int,
@@ -212,7 +210,6 @@ def mode_search_cuda(pt, wei, wes, mcut, maxwq, comb_err, comb_fmt, C: int,
                      wei2=None, wes2=None, mcut2=None):
     """Launch kernel K1; same arguments and outputs as the plain version
     except ``err``, which is the total error of each candidate."""
-    global launches
     N, T = wei.shape
     k = pt.k
     pc = pt.pc
@@ -256,7 +253,8 @@ def mode_search_cuda(pt, wei, wes, mcut, maxwq, comb_err, comb_fmt, C: int,
         if rc != 0:
             raise RuntimeError("msearch kernel launch failed: "
                                + lib.astc_error_string(rc).decode())
-        launches += 1
+        if obs.on:
+            obs.count("launch.msearch")
     out = {
         "mode": out_i[..., 0], "dm": out_i[..., 1], "wq": out_i[..., 2],
         "valid": out_i[..., 3] != 0, "cq": out_i[..., 4],

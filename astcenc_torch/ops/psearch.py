@@ -31,21 +31,25 @@ import ctypes
 
 import torch
 
+from .. import obs
 from . import _build
 from . import ideal as ideal_ops
-
-#: Launches of the CUDA kernel (the plain version does not count), and of
-#: its per-block weights' form among them.
-launches = 0
-launches_asr = 0
 
 
 def _line_errors(tex_rep, pmask, counts_f, cw, wie: float, comp_mask):
     dev = tex_rep.device
     avg, dirv = ideal_ops.avgs_and_dirs(tex_rep, pmask, comp_mask)
+    wait = obs.on and obs.sync("psearch.comp_mask", "h2d")
     cm = torch.tensor(comp_mask, dtype=torch.float32, device=dev)
-    cwt = (cw[:, None, :] if torch.is_tensor(cw)
-           else torch.tensor(cw, dtype=torch.float32, device=dev))
+    if wait:
+        obs.end(wait, cm.nbytes)
+    if torch.is_tensor(cw):
+        cwt = cw[:, None, :]
+    else:
+        wait = obs.on and obs.sync("psearch.channel_weight", "h2d")
+        cwt = torch.tensor(cw, dtype=torch.float32, device=dev)
+        if wait:
+            obs.end(wait, cwt.nbytes)
     uncor_b = ideal_ops.normalize_safe(dirv, comp_mask)
     samec_b = ideal_ops.normalize_safe(avg * cm, comp_mask)
     d = (avg * uncor_b * cm).sum(-1, keepdim=True)
@@ -121,7 +125,6 @@ def line_errors_cuda(texels, uses_alpha, top, pot_table, count_table,
     """Launch kernel K4; same arguments and outputs as the plain version
     (the kernel counts each partition's texels itself). With ``cw_scale``
     its per-block weights' form runs."""
-    global launches, launches_asr
     N, S = top.shape
     T = texels.shape[1]
     Q = pot_table.shape[0]
@@ -149,8 +152,10 @@ def line_errors_cuda(texels, uses_alpha, top, pot_table, count_table,
         if rc != 0:
             raise RuntimeError("psearch kernel launch failed: "
                                + lib.astc_error_string(rc).decode())
-        launches += 1
-        launches_asr += cw_scale is not None
+        if obs.on:
+            obs.count("launch.psearch")
+            if cw_scale is not None:
+                obs.count("launch.psearch.asr")
     return out_u, out_s
 
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import obs
 from . import softfloat as sf
 
 
@@ -48,7 +49,10 @@ def _weights(channel_weight, dev):
         cw = channel_weight
         d = cw.to(torch.float64)
         return cw, ((d[:, 0] + d[:, 1]) + d[:, 2]).to(torch.float32)
+    wait = obs.on and obs.sync("recompute.channel_weight", "h2d")
     cw = torch.tensor(channel_weight, dtype=torch.float32, device=dev)
+    if wait:
+        obs.end(wait, cw.nbytes)
     return cw, float(channel_weight[0] + channel_weight[1]
                      + channel_weight[2])
 

@@ -68,6 +68,7 @@ import ctypes
 
 import torch
 
+from .. import obs
 from . import _build
 from . import color_pack as cpack
 from . import color_unquant as cuq
@@ -75,27 +76,18 @@ from . import ideal as ideal_ops
 from . import realign as realign_ops
 from . import recompute as recompute_ops
 
-#: Launches of the CUDA kernels (the plain versions do not count): K2, K3,
-#: K5, K6 and K7.
-launches = 0
-launches2 = 0
-launches_round1 = 0
-launches_round2 = 0
-launches_boot2 = 0
-#: Launches of the weighted and RGBM forms, (kernel, form) -> count, form
-#: "asr" (per-block weights), "rgbm" or "asr+rgbm", beside the counts
-#: above (which count every launch of a kernel).
-form_launches = {}
-
 _BIG = 1e30
 
 
-def _count_form(kernel: str, cw_scale, rgbm: float) -> None:
+def _count_launch(kernel: str, cw_scale, rgbm: float) -> None:
+    """Count a launch of ``kernel`` (``launch.<kernel>``) and of its
+    weighted or RGBM form (``launch.<kernel>.<form>``, form "asr", "rgbm"
+    or "asr+rgbm")."""
+    obs.count("launch." + kernel)
     parts = [name for name, on in (("asr", cw_scale is not None),
                                    ("rgbm", rgbm > 0.0)) if on]
     if parts:
-        key = (kernel, "+".join(parts))
-        form_launches[key] = form_launches.get(key, 0) + 1
+        obs.count(f"launch.{kernel}.{'+'.join(parts)}")
 
 
 def lane_cw(cw, cw_scale, C: int):
@@ -239,7 +231,10 @@ def trial1_refine_plain(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
     e1 = ep1.repeat_interleave(C, 0)
     cw = lane_cw(cw, cw_scale, C)
     Mint, Mf32, incid, wvalid, color_of, pn_rows = _lane_tables(pt, dm, wq)
+    wait = obs.on and obs.sync("refine.big_1plane", "h2d")
     big = torch.tensor(_BIG, device=dev)
+    if wait:
+        obs.end(wait, big.nbytes)
     i32 = torch.int32
     wgrid = wgrid0
     out = {k: [] for k in ("fmt", "vals", "useq", "match", "wpost",
@@ -318,7 +313,10 @@ def trial2_refine_plain(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
     e1 = ep1.repeat_interleave(C, 0)
     cw = lane_cw(cw, cw_scale, C)
     Mint, Mf32, incid, wvalid, color_of, pn_rows = _lane_tables(pt, dm, wq)
+    wait = obs.on and obs.sync("refine.big_2plane", "h2d")
     big = torch.tensor(_BIG, device=dev)
+    if wait:
+        obs.end(wait, big.nbytes)
     wg1, wg2 = wg1_0, wg2_0
     out = {k: [] for k in ("fmt", "vals", "w1post", "w2post", "err_post")}
     err_pre = None
@@ -406,7 +404,6 @@ def trial1_refine_cuda(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
                        cw: tuple, profile: int, cw_scale=None,
                        rgbm: float = 0.0):
     """Launch kernel K2; same arguments and outputs as the plain version."""
-    global launches
     NC, W = wgrid0.shape
     N, T, _ = texels.shape
     pc = fmt_req.shape[1]
@@ -443,8 +440,8 @@ def trial1_refine_cuda(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
             scale, float(rgbm), p(out_i), p(out_e),
             ctypes.c_void_p(_build.stream(dev.index)))
         _raise_on(lib, rc, "refine")
-        launches += 1
-        _count_form("K2", cw_scale, rgbm)
+        if obs.on:
+            _count_launch("refine", cw_scale, rgbm)
     return {"fmt": out_i[..., 0:4], "vals": out_i[..., 4:36].reshape(
                 R, NC, 4, 8),
             "useq": out_i[..., 36], "match": out_i[..., 37] != 0,
@@ -457,7 +454,6 @@ def trial2_refine_cuda(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
                        u8_mask: bool, cw: tuple, profile: int,
                        cw_scale=None, rgbm: float = 0.0):
     """Launch kernel K3; same arguments and outputs as the plain version."""
-    global launches2
     NC, W = wg1_0.shape
     N0, T, _ = texels.shape
     N = ep0.shape[0]
@@ -497,8 +493,8 @@ def trial2_refine_cuda(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
             *(float(c) for c in cw), scale, float(rgbm), p(out_i), p(out_e),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
         _raise_on(lib, rc, "refine2")
-        launches2 += 1
-        _count_form("K3", cw_scale, rgbm)
+        if obs.on:
+            _count_launch("refine2", cw_scale, rgbm)
     return {"fmt": out_i[..., 0], "vals": out_i[..., 1:9],
             "w1post": out_i[..., 16:16 + W], "w2post": out_i[..., 16 + W:],
             "err_pre": out_e[0], "err_post": out_e[1:]}
@@ -652,7 +648,6 @@ def refine_round_1plane_cuda(pt, wgrid, dm, wq, alive, ep0, ep1, texels,
                              pot, C: int, ncolors: int, u8_mask: bool,
                              cw: tuple, cw_scale=None, rgbm: float = 0.0):
     """Launch kernel K5; same arguments and outputs as the plain version."""
-    global launches_round1
     NC, W = wgrid.shape
     N, T, _ = texels.shape
     dev = texels.device
@@ -684,8 +679,8 @@ def refine_round_1plane_cuda(pt, wgrid, dm, wq, alive, ep0, ep1, texels,
             *(float(c) for c in cw), scale, float(rgbm), p(grid), p(adjusted),
             p(undec), p(err), _stream(dev))
         _raise_on(lib, rc, "refine_round")
-        launches_round1 += 1
-        _count_form("K5", cw_scale, rgbm)
+        if obs.on:
+            _count_launch("refine_round", cw_scale, rgbm)
     return {"grid": grid, "adjusted": adjusted != 0, "undec": undec,
             "err_pre": err[0], "err_post": err[1]}
 
@@ -695,7 +690,6 @@ def refine_round_2plane_cuda(pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1,
                              cw: tuple, cw_scale=None, rgbm: float = 0.0):
     """Launch kernel K6 (ncolors > 0) or K7 (ncolors == 0); same arguments
     and outputs as the plain version. K7 reads no weight."""
-    global launches_round2, launches_boot2
     NC, W = wg1.shape
     N0, T, _ = texels.shape
     dev = texels.device
@@ -719,8 +713,8 @@ def refine_round_2plane_cuda(pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1,
                 p(wg1), p(wg2), p(dm), p(k.tap_w), p(k.tap_i), NC, T, W,
                 k.wt_n.shape[0], p(u1), p(u2), _stream(dev))
             _raise_on(lib, rc, "refine_boot2")
-            launches_boot2 += 1
-            _count_form("K7", cw_scale, rgbm)
+            if obs.on:
+                _count_launch("refine_boot2", cw_scale, rgbm)
         return {"undec1": u1, "undec2": u2}
     _build.check(wq, "wq", i32, (NC,))
     _build.check(alive, "alive", torch.bool, (NC,))
@@ -742,8 +736,8 @@ def refine_round_2plane_cuda(pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1,
             *(float(c) for c in cw), scale, float(rgbm), p(g1), p(g2),
             p(adjusted), p(u1), p(u2), p(err), _stream(dev))
         _raise_on(lib, rc, "refine_round2")
-        launches_round2 += 1
-        _count_form("K6", cw_scale, rgbm)
+        if obs.on:
+            _count_launch("refine_round2", cw_scale, rgbm)
     return {"grid1": g1, "grid2": g2, "adjusted": adjusted != 0,
             "undec1": u1, "undec2": u2, "err_pre": err[0],
             "err_post": err[1]}

@@ -31,10 +31,8 @@ import ctypes
 
 import torch
 
+from .. import obs
 from . import _build
-
-#: Launches of the texel-sum kernel (the plain version does not count).
-launches = 0
 
 _LEVELS = 4
 _ORDERS = ("seq", "outer", "wide")
@@ -100,7 +98,6 @@ def _lib():
 def texel_sum_cuda(a, b, order: str = "seq"):
     """Launch the texel-sum kernel; same arguments and output as the plain
     version. ``a`` and ``b`` may be strided or broadcast views."""
-    global launches
     N, T, P = a.shape
     C = b.shape[2]
     for name, t in (("a", a), ("b", b)):
@@ -123,7 +120,8 @@ def texel_sum_cuda(a, b, order: str = "seq"):
         if rc != 0:
             raise RuntimeError("texel_sum kernel launch failed: "
                                + lib.astc_error_string(rc).decode())
-        launches += 1
+        if obs.on:
+            obs.count("launch.texel_sum")
     return out
 
 

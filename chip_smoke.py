@@ -498,26 +498,36 @@ def _profile(run):
     return out
 
 
-def _reset(msearch, refine, psearch, gather, color_pack, texel_sum):
-    msearch.launches = refine.launches = refine.launches2 = 0
-    refine.launches_round1 = refine.launches_round2 = 0
-    refine.launches_boot2 = psearch.launches = color_pack.launches = 0
-    gather.launches_rows = texel_sum.launches = psearch.launches_asr = 0
-    refine.form_launches.clear()
+#: The launch counters' kernels (``launch.<kernel>``) by the keys printed;
+#: their forms (``launch.<kernel>.<form>``) print as "<label> <form>".
+_KERNELS = ("msearch", "refine", "refine2", "psearch", "refine_round",
+            "refine_round2", "refine_boot2", "row_gather", "color_pack",
+            "texel_sum")
+_LABELS = {"refine": "K2", "refine2": "K3", "psearch": "K4",
+           "refine_round": "K5", "refine_round2": "K6",
+           "refine_boot2": "K7"}
 
 
-def _counts(msearch, refine, psearch, gather, color_pack, texel_sum):
-    return {"msearch": msearch.launches, "refine": refine.launches,
-            "refine2": refine.launches2, "psearch": psearch.launches,
-            "refine_round": refine.launches_round1,
-            "refine_round2": refine.launches_round2,
-            "refine_boot2": refine.launches_boot2,
-            "row_gather": gather.launches_rows,
-            "color_pack": color_pack.launches,
-            "texel_sum": texel_sum.launches,
-            **({"K4 asr": psearch.launches_asr} if psearch.launches_asr
-               else {}),
-            **{f"{k} {f}": n for (k, f), n in refine.form_launches.items()}}
+def _reset():
+    """Start counting launches (the program's tracing on, its counts
+    cleared)."""
+    from astcenc_torch import obs
+    obs.collect()
+    obs.enable()
+
+
+def _counts():
+    """The launches of each kernel since ``_reset``, and of each weighted
+    or RGBM form; the program's tracing off again."""
+    from astcenc_torch import obs
+    c = obs.collect().counters
+    obs.disable()
+    out = {k: c.get("launch." + k, 0) for k in _KERNELS}
+    for key, n in c.items():
+        parts = key.split(".")
+        if parts[0] == "launch" and len(parts) == 3:
+            out[f"{_LABELS.get(parts[1], parts[1])} {parts[2]}"] = n
+    return out
 
 
 def _capture_hdr(refine, cph):
@@ -1067,8 +1077,8 @@ FULL_SIZE = (("4x4 -medium", "LDR", 4, "MEDIUM", "main"),
              ("4x4 -thorough -ch", "HDR_RGB_LDR_A", 4, "THOROUGH", "hdr"))
 
 
-def _full_footprints(api, compress_mod, decompress, metrics, counters, img,
-                     img_h, dev, smi, at):
+def _full_footprints(api, compress_mod, decompress, metrics, img, img_h,
+                     dev, smi, at):
     """Phase 16: the FULL_SIZE configurations through api.compress_image;
     returns the 4x4 -medium context for the profile."""
     ctxs = {}
@@ -1094,12 +1104,12 @@ def _full_footprints(api, compress_mod, decompress, metrics, counters, img,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
-        _reset(*counters)
+        _reset()
         t0 = time.perf_counter()
         blocks = api.compress_image(ctx, image)
         torch.cuda.synchronize()
         enc_s = time.perf_counter() - t0
-        launches = _counts(*counters)
+        launches = _counts()
         peak = torch.cuda.max_memory_allocated(dev)
         need = (("msearch", "psearch", "refine_round", "refine_round2",
                  "refine_boot2", "color_pack") if hdr
@@ -1158,7 +1168,7 @@ VOLUME_CROP = 32  # side of the 3D warm-up crops
 
 
 def _full_features(api, compress_mod, decompress, metrics, testdata,
-                   counters, img, img_h, dev, seed, smi, at):
+                   img, img_h, dev, seed, smi, at):
     """Phase 17: the FULL_FEATURES configurations through
     api.compress_image, each after a warm-up encode of a crop of whole
     blocks at the origin (256x256, or 32^3 rounded down to whole blocks),
@@ -1192,12 +1202,12 @@ def _full_features(api, compress_mod, decompress, metrics, testdata,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
-        _reset(*counters)
+        _reset()
         t0 = time.perf_counter()
         blocks = api.compress_image(ctx, image)
         torch.cuda.synchronize()
         enc_s = time.perf_counter() - t0
-        launches = _counts(*counters)
+        launches = _counts()
         peak = torch.cuda.max_memory_allocated(dev)
         assert all(launches.get(k, 0) > 0 for k in need), (tag, launches)
         assert launches["row_gather"] == 0, (tag, launches)
@@ -1270,7 +1280,7 @@ def _printed(out: str) -> dict:
     return got
 
 
-def _cli_phase(api, compress_mod, decompress, counters, img, blocks, psnr,
+def _cli_phase(api, compress_mod, decompress, img, blocks, psnr,
                img_hc, blocks_hc, img_c, ctx, dev, smi, at):
     """Phase 18: the CLI on the main path and the HDR centre, -dtrace, the
     entry point and the sharded encode (see the module docstring)."""
@@ -1289,10 +1299,10 @@ def _cli_phase(api, compress_mod, decompress, counters, img, blocks, psnr,
     printed = {}
     # LDR: -cl with -repeats 3, -dl, -tl.
     ktx.write_ktx_uncompressed(path("in.ktx"), img[None])
-    _reset(*counters)
+    _reset()
     rc, out = _cli(cli, ["-cl", path("in.ktx"), path("out.astc"), "6x6",
                          "-medium", "-repeats", "3"])
-    launches = _counts(*counters)
+    launches = _counts()
     assert rc == 0, out
     assert all(launches[k] > 0 for k in ("msearch", "refine", "refine2",
                                          "psearch")), launches
@@ -1313,10 +1323,10 @@ def _cli_phase(api, compress_mod, decompress, counters, img, blocks, psnr,
     assert abs(cli_psnr - psnr) < 1e-4, (cli_psnr, psnr)
     # HDR: phase 8's centre as .exr; -ch with -repeats 3, -dh, -th.
     exr.write_exr(path("in_h.exr"), img_hc, ncomp=4)
-    _reset(*counters)
+    _reset()
     rc, out = _cli(cli, ["-ch", path("in_h.exr"), path("out_h.astc"), "6x6",
                          "-medium", "-repeats", "3"])
-    launches_h = _counts(*counters)
+    launches_h = _counts()
     assert rc == 0, out
     assert all(launches_h[k] > 0 for k in ("msearch", "psearch",
                                            "refine_round", "refine_round2",
@@ -1630,13 +1640,12 @@ def main() -> int:
     cfg1.tune_2plane_early_out_limit_correlation = 0.0
     ctx1 = api.context_alloc(cfg1, device=dev)
     img1 = testdata.synthetic_image(CAPTURE, CAPTURE, args.seed + 2)
-    counters = (msearch, refine, psearch, gather, cp, ts)
-    _reset(*counters)
+    _reset()
     t0 = time.perf_counter()
     b1 = api.compress_image(ctx1, img1)
     torch.cuda.synchronize()
     s1 = time.perf_counter() - t0
-    n1 = _counts(*counters)
+    n1 = _counts()
     assert n1["msearch"] > 0 and n1["refine"] > 0, n1
     d1 = api.decompress_image(ctx1, b1, CAPTURE, CAPTURE)[0]
     p1 = _psnr(d1, img1)
@@ -1651,12 +1660,12 @@ def main() -> int:
                                    independent_alpha=True)
     api.compress_image(ctx, img)                          # warm-up
     torch.cuda.synchronize()
-    _reset(*counters)
+    _reset()
     t0 = time.perf_counter()
     blocks = api.compress_image(ctx, img)
     torch.cuda.synchronize()
     enc_s = time.perf_counter() - t0
-    launches = _counts(*counters)
+    launches = _counts()
     ldr_kernels = ("msearch", "refine", "refine2", "psearch")
     assert all(launches[k] > 0 for k in ldr_kernels), launches
     assert launches["row_gather"] == 0, launches
@@ -1804,12 +1813,12 @@ def main() -> int:
                                          independent_alpha=True)
     src_h = img_h.astype(np.float32)
     # Phase 7's encode at this configuration was the warm-up.
-    _reset(*counters)
+    _reset()
     t0 = time.perf_counter()
     blocks_h = api.compress_image(ctx_h, img_h)
     torch.cuda.synchronize()
     enc_h = time.perf_counter() - t0
-    launches_h = _counts(*counters)
+    launches_h = _counts()
     hdr_kernels = ("msearch", "psearch", "refine_round", "refine_round2",
                    "refine_boot2", "color_pack")
     assert all(launches_h[k] > 0 for k in hdr_kernels), launches_h
@@ -1947,13 +1956,13 @@ def main() -> int:
           flush=True)
 
     # --- 11. the LDR refine-off path ------------------------------------
-    _reset(*counters)
+    _reset()
     t0 = time.perf_counter()
     with _disabled("refine"):
         blocks_r = api.compress_image(ctx, img)
     torch.cuda.synchronize()
     enc_r = time.perf_counter() - t0
-    launches_r = _counts(*counters)
+    launches_r = _counts()
     assert launches_r["refine"] == 0 and launches_r["refine2"] == 0, \
         launches_r
     for k in ("msearch", "psearch", "row_gather", "color_pack"):
@@ -1978,13 +1987,13 @@ def main() -> int:
 
     # --- 12. msearch,refine off on the central quarter -------------------
     fused_q = api.compress_image(ctx, img_q)
-    _reset(*counters)
+    _reset()
     t0 = time.perf_counter()
     with _disabled("msearch,refine"):
         blocks_q = api.compress_image(ctx, img_q)
     torch.cuda.synchronize()
     enc_q = time.perf_counter() - t0
-    launches_q = _counts(*counters)
+    launches_q = _counts()
     assert all(launches_q[k] == 0 for k in ("msearch", "refine", "refine2")), \
         launches_q
     assert launches_q["row_gather"] > 0, launches_q
@@ -2001,13 +2010,13 @@ def main() -> int:
 
     # --- 13. the HDR refine-off path on phase 8's profiled centre --------
     q = HDR_SIZE // 4
-    _reset(*counters)
+    _reset()
     t0 = time.perf_counter()
     with _disabled("refine"):
         blocks_hr = api.compress_image(ctx_h, img_p)
     torch.cuda.synchronize()
     enc_hr = time.perf_counter() - t0
-    launches_hr = _counts(*counters)
+    launches_hr = _counts()
     assert all(launches_hr[k] == 0 for k in
                ("refine_round", "refine_round2", "refine_boot2")), launches_hr
     assert launches_hr["row_gather"] > 0, launches_hr
@@ -2067,19 +2076,19 @@ def main() -> int:
         assert same.mean() >= 0.999, (tag, float(same.mean()))
 
     # --- 16. footprints at full size --------------------------------------
-    ctx4 = _full_footprints(api, compress_mod, decompress, metrics, counters,
-                            img, img_h, dev, smi, at)
+    ctx4 = _full_footprints(api, compress_mod, decompress, metrics, img,
+                            img_h, dev, smi, at)
     prof4 = _profile(lambda: api.compress_image(ctx4, img))
     print(f"{at()} profile 4x4 -medium ({SIZE}x{SIZE}): {json.dumps(prof4)}"
           f" | {smi}", flush=True)
 
     # --- 17. the new inputs at full size ----------------------------------
     form_launches = _full_features(api, compress_mod, decompress, metrics,
-                                   testdata, counters, img, img_h, dev,
+                                   testdata, img, img_h, dev,
                                    args.seed, smi, at)
 
     # --- 18. CLI and devices ---------------------------------------------
-    _cli_phase(api, compress_mod, decompress, counters, img, blocks, psnr,
+    _cli_phase(api, compress_mod, decompress, img, blocks, psnr,
                img_p, held[0], img_c, ctx, dev, smi, at)
 
     meta = {"K1": ("msearch", "astcenc_torch/csrc/msearch.cu",

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from astcenc_torch import api, testdata
+from astcenc_torch import api, obs, testdata
 from astcenc_torch.codec import compress as tc
 from astcenc_torch.codec import partition_search
 from astcenc_torch.codec import trial
@@ -32,6 +32,17 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU build")
     return torch.device("cuda", 0)
+
+
+@pytest.fixture
+def launched():
+    """``launched(kernel)``: the launches of ``kernel`` that the program's
+    launch counters (``obs``) counted since the last call."""
+    obs.collect()
+    obs.enable()
+    yield lambda kernel: obs.collect().counters.get("launch." + kernel, 0)
+    obs.disable()
+    obs.collect()
 
 
 def _slice_cfg():
@@ -372,7 +383,7 @@ def test_refine_round2_kernels_match_plain(cuda_device):
 
 
 @pytest.mark.parametrize("profile", [0, 2, 3])
-def test_color_pack_kernel_matches_plain(cuda_device, profile):
+def test_color_pack_kernel_matches_plain(cuda_device, launched, profile):
     """The colour pack kernel against the plain pack, bit for bit, on the
     seeded batch with the pack's corner cases (testdata.pack_batch: every
     format at every quant level, endpoints at 0 and 65535, major-component
@@ -382,13 +393,13 @@ def test_color_pack_kernel_matches_plain(cuda_device, profile):
     from astcenc_torch.ops import color_pack_hdr as cph
     b = [torch.from_numpy(a).to(cuda_device)
          for a in testdata.pack_batch(30 + profile, 20000, corners=True)]
-    n0 = cp.launches
+    launched("color_pack")
     got = cph.pack_color_endpoints(profile, *b)
-    assert cp.launches == n0 + 1
+    assert launched("color_pack") == 1
     want = cph.pack_color_endpoints_plain(profile, *b)
     assert (got[0] == want[0]).all() and (got[1] == want[1]).all()
     got = cp.pack_color_endpoints_ldr(b[0], b[1], b[2], b[4], b[5])
-    assert cp.launches == n0 + 2
+    assert launched("color_pack") == 1
     want = cp.pack_color_endpoints_ldr_plain(b[0], b[1], b[2], b[4], b[5])
     assert (got[0] == want[0]).all() and (got[1] == want[1]).all()
 
@@ -442,7 +453,8 @@ def test_main_path_encode_kernels_match_plain(cuda_device):
 @pytest.mark.parametrize("itype", ["int32", "int64"])
 @pytest.mark.parametrize("dtype,C", [("int32", None), ("int32", 2),
                                      ("float32", None), ("float32", 2)])
-def test_row_gather_kernel_matches_plain(cuda_device, dtype, C, itype):
+def test_row_gather_kernel_matches_plain(cuda_device, launched, dtype, C,
+                                        itype):
     """K8, bit for bit, with int32 and int64 indices: out-of-range indices,
     and float32 NaN payloads, +-Inf, -0.0 and denormals."""
     from astcenc_torch.ops import gather
@@ -464,9 +476,9 @@ def test_row_gather_kernel_matches_plain(cuda_device, dtype, C, itype):
         idx[1::97, 5] = 2 ** 40
     r = torch.from_numpy(rows).to(cuda_device)
     i = torch.from_numpy(idx).to(cuda_device)
-    n0 = gather.launches_rows
+    launched("row_gather")
     got = gather.row_lookup(r, i)
-    assert gather.launches_rows == n0 + 1
+    assert launched("row_gather") == 1
     want = gather.row_lookup_plain(r, i)
     assert got.dtype == r.dtype and got.shape == want.shape
     if dtype == "float32":
@@ -476,21 +488,21 @@ def test_row_gather_kernel_matches_plain(cuda_device, dtype, C, itype):
 
 def _refine_off(monkeypatch, ctx, img, value="refine"):
     """Encode with ASTC_DISABLE_KERNELS=value; the blocks and the launches
-    of every kernel during that encode."""
-    from astcenc_torch.ops import color_pack, gather, refine
-    mods = {"K1": (msearch, "launches"), "K2": (refine, "launches"),
-            "K3": (refine, "launches2"), "K4": (psearch, "launches"),
-            "K5": (refine, "launches_round1"),
-            "K6": (refine, "launches_round2"),
-            "K7": (refine, "launches_boot2"),
-            "K8": (gather, "launches_rows"),
-            "K9": (color_pack, "launches")}
-    before = {k: getattr(m, a) for k, (m, a) in mods.items()}
-    with monkeypatch.context() as m:
-        m.setenv("ASTC_DISABLE_KERNELS", value)
-        blocks = api.compress_image(ctx, img)
-    return blocks, {k: getattr(m, a) - before[k]
-                    for k, (m, a) in mods.items()}
+    of every kernel during that encode (the program's launch counters)."""
+    kernels = {"K1": "msearch", "K2": "refine", "K3": "refine2",
+               "K4": "psearch", "K5": "refine_round", "K6": "refine_round2",
+               "K7": "refine_boot2", "K8": "row_gather", "K9": "color_pack"}
+    obs.collect()
+    obs.enable()
+    try:
+        with monkeypatch.context() as m:
+            m.setenv("ASTC_DISABLE_KERNELS", value)
+            blocks = api.compress_image(ctx, img)
+        counts = obs.collect().counters
+    finally:
+        obs.disable()
+    return blocks, {k: counts.get("launch." + n, 0)
+                    for k, n in kernels.items()}
 
 
 def test_refine_off_ldr_crop_matches_fused(cuda_device, monkeypatch):

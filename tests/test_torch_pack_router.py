@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from astcenc_torch import testdata
+from astcenc_torch import obs, testdata
 from astcenc_torch.ops import _build
 from astcenc_torch.ops import color_pack as cp
 from astcenc_torch.ops import color_pack_hdr as cph
@@ -85,14 +85,24 @@ def fake_card(monkeypatch):
     return pack, rows
 
 
+@pytest.fixture
+def launched():
+    """``launched(kernel)``: the launches of ``kernel`` that the program's
+    launch counters (``obs``) counted since the last call."""
+    obs.collect()
+    obs.enable()
+    yield lambda kernel: obs.collect().counters.get("launch." + kernel, 0)
+    obs.disable()
+    obs.collect()
+
+
 def _batch(seed, n=512):
     return [torch.from_numpy(a) for a in testdata.pack_batch(seed, n)]
 
 
 @pytest.mark.parametrize("profile", [0, 2, 3])
-def test_pack_cpu_tensors_take_plain(profile):
+def test_pack_cpu_tensors_take_plain(launched, profile):
     b = _batch(profile)
-    n0 = cp.launches
     got = cph.pack_color_endpoints(profile, *b)
     want = cph.pack_color_endpoints_plain(profile, *b)
     for g, w in zip(got, want):
@@ -101,7 +111,7 @@ def test_pack_cpu_tensors_take_plain(profile):
     want = cp.pack_color_endpoints_ldr_plain(b[0], b[1], b[2], b[4], b[5])
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert cp.launches == n0
+    assert launched("color_pack") == 0
 
 
 def test_pack_other_device_raises():
@@ -114,7 +124,7 @@ def test_pack_other_device_raises():
 
 
 @pytest.mark.parametrize("profile", [0, 2, 3])
-def test_pack_kernel_wrapper(fake_card, profile):
+def test_pack_kernel_wrapper(fake_card, launched, profile):
     """One launch per pack call, its buffers flat float32 and int32 even
     from strided float64 and int64 inputs, its outputs the plain pack's."""
     pack, _ = fake_card
@@ -126,9 +136,8 @@ def test_pack_kernel_wrapper(fake_card, profile):
     ql = torch.from_numpy(b[5].astype(np.int64))
     args = [ep0, torch.from_numpy(b[1]), rgbs, torch.from_numpy(b[3]),
             torch.from_numpy(b[4]), ql]
-    n0 = cp.launches
     got = cph.pack_color_endpoints(profile, *args)
-    assert cp.launches == n0 + 1
+    assert launched("color_pack") == 1
     assert pack.calls == [{"B": b[0].shape[0], "profile": profile,
                            "rgbo": profile >= 2, "stream": 77}]
     assert got[0].shape == want[0].shape and got[1].shape == want[1].shape
@@ -136,19 +145,18 @@ def test_pack_kernel_wrapper(fake_card, profile):
         assert g.dtype == torch.int32 and torch.equal(g, w)
     # use_kernel=False stays plain.
     got = cph.pack_color_endpoints(profile, *args, use_kernel=False)
-    assert cp.launches == n0 + 1
+    assert launched("color_pack") == 0
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
 
-def test_pack_ldr_kernel_wrapper(fake_card):
+def test_pack_ldr_kernel_wrapper(fake_card, launched):
     """The LDR pack of the plain refinement: one launch, no rgbo buffer."""
     pack, _ = fake_card
     b = [torch.from_numpy(a) for a in testdata.pack_batch(5, 600)]
     want = cp.pack_color_endpoints_ldr_plain(b[0], b[1], b[2], b[4], b[5])
-    n0 = cp.launches
     got = cp.pack_color_endpoints_ldr(b[0], b[1], b[2], b[4], b[5])
-    assert cp.launches == n0 + 1
+    assert launched("color_pack") == 1
     assert pack.calls == [{"B": b[0].shape[0], "profile": 1, "rgbo": False,
                            "stream": 77}]
     for g, w in zip(got, want):
@@ -174,15 +182,14 @@ def _rows_case(dtype, C, itype, batch=(3, 5), V=40, K=17, seed=0):
     ("int32", None, "int32"), ("int32", 2, "int64"),
     ("float32", None, "int64"), ("float32", 2, "int32"),
     ("float32", 3, "int64")])
-def test_row_lookup_kernel_wrapper(fake_card, dtype, C, itype):
+def test_row_lookup_kernel_wrapper(fake_card, launched, dtype, C, itype):
     """K8's wrapper: int32 or int64 indices passed as they are (no
     conversion), the batch dimensions flattened to B, the output in its
     final shape and dtype, bit for bit the plain version's."""
     _, launch = fake_card
     rows, idx = _rows_case(dtype, C, itype)
-    n0 = gather.launches_rows
     got = gather.row_lookup(rows, idx)
-    assert gather.launches_rows == n0 + 1
+    assert launched("row_gather") == 1
     assert launch.calls == [{"B": 15, "V": 40, "K": 17, "C": C or 1,
                              "idx64": itype == "int64", "stream": 77}]
     want = gather.row_lookup_plain(rows, idx)

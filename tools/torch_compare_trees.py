@@ -47,9 +47,13 @@ for name, cfg, img in (
     np.save(f"{out}_{name}.npy", blocks)
 if prof == "1":
     import chip_smoke
-    from astcenc_torch.ops import (color_pack, gather, msearch, psearch,
-                                   refine, texel_sum)
-    mods = (msearch, refine, psearch, gather, color_pack, texel_sum)
+    try:
+        from astcenc_torch import obs  # noqa: F401 (launches in its counters)
+        mods = ()
+    except ImportError:                # a tree with module launch counters
+        from astcenc_torch.ops import (color_pack, gather, msearch, psearch,
+                                       refine, texel_sum)
+        mods = (msearch, refine, psearch, gather, color_pack, texel_sum)
     enc_s = []
     for k in range(3):
         chip_smoke._reset(*mods)
