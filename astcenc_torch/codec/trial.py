@@ -350,7 +350,8 @@ def _hdr_rounds_1plane(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
     """The R rounds of a 1-plane HDR trial (JAX trial.py:624-659): one
     bootstrap round (K5 with no realign) for the first infill, then per
     round the least-squares refit with the RGBO vector, the pack of both
-    arms, the decode and one K5 round. Arguments and outputs are those of
+    arms, the decode (like the pack, on its kernel unless ``use_kernels``
+    is False) and one K5 round. Arguments and outputs are those of
     ``refine.trial1_refine``; with ``refine`` False the rounds run their
     plain version (its lookups on K8 unless ``use_kernels`` is False)."""
     NC, W = wgrid0.shape
@@ -393,7 +394,8 @@ def _hdr_rounds_1plane(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
 
         fmt4, vals4, use_q, matched = refine_ops.pack_partitions(pack, cq,
                                                                 cqm, pc)
-        d0, d1, _, _ = cuq.unpack_color_endpoints(profile, fmt4, vals4)
+        d0, d1, _, _ = cuq.unpack_color_endpoints(
+            profile, fmt4, vals4, use_kernel=use_kernels)
         res = rnd(wgrid, alive, d0.contiguous(), d1.contiguous(),
                   pt.ncolors)
         if r == 0:
@@ -417,8 +419,9 @@ def _hdr_rounds_2plane(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
                        rgbm: float = 0.0):
     """The R rounds of a 2-plane HDR trial (JAX trial.py:1192-1226): one
     K7 launch for both first infills, then per round the 2-plane refit
-    with the RGBO vector, the pack, the decode and one K6 round. Arguments
-    and outputs are those of ``refine.trial2_refine``; with ``refine``
+    with the RGBO vector, the pack and the decode (on their kernels unless
+    ``use_kernels`` is False) and one K6 round. Arguments and outputs are
+    those of ``refine.trial2_refine``; with ``refine``
     False the rounds run their plain version."""
     NC, W = wg1_0.shape
     N = ep0.shape[0]
@@ -453,7 +456,8 @@ def _hdr_rounds_2plane(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
         fmt, vals = cph.pack_color_endpoints(
             profile, e0, e1, rc["rgbs"], rc["rgbo"], fmt_req, cq,
             use_kernel=use_kernels)
-        d0, d1, _, _ = cuq.unpack_color_endpoints(profile, fmt, vals)
+        d0, d1, _, _ = cuq.unpack_color_endpoints(
+            profile, fmt, vals, use_kernel=use_kernels)
         res = rnd(wg1, wg2, alive, d0.contiguous(), d1.contiguous(),
                   pt.ncolors)
         if r == 0:

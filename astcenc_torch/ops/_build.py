@@ -89,10 +89,12 @@ def build_key(name: str) -> str:
 
 #: The kernel sources: K1 msearch, K2 refine, K3 refine2, K4 psearch, K5
 #: refine_round, K6 and K7 refine_round2, K8 row_gather, K9 color_pack (the
-#: colour pack, in place of the TPU's colour quantizer lookup), and
-#: texel_sum (the glue's texel sums in the CPU's order; no TPU kernel).
+#: colour pack, in place of the TPU's colour quantizer lookup), and, with
+#: no TPU kernel, texel_sum (the glue's texel sums in the CPU's order) and
+#: color_unpack (the colour endpoint decode).
 KERNELS = ("msearch", "refine", "refine2", "psearch", "refine_round",
-           "refine_round2", "row_gather", "color_pack", "texel_sum")
+           "refine_round2", "row_gather", "color_pack", "texel_sum",
+           "color_unpack")
 
 
 def _lib_path(name: str) -> str:

@@ -371,3 +371,38 @@ def pack_batch(seed: int, n: int = 4096, corners: bool = False):
                   (4 + (7 * i + 3 * f + 8 * k) % 17).astype(np.int32)]
         out = [np.concatenate([a, b]) for a, b in zip(out, extra)]
     return tuple(out)
+
+
+def unpack_batch(seed: int, n: int):
+    """The colour decode's inputs: fmt (n,) and vals (n, 8) int32. First
+    fixed rows: every format 0-15 with all values 0 and with all 255; in
+    FMT_HDR_RGB, FMT_HDR_RGB_LDR_ALPHA and FMT_HDR_RGBA 4 rows of each
+    (modeval, majcomp) of the HDR RGB decode with each modeval of the HDR
+    alpha decode (the top bits of values 1-5 and 6-7); in
+    FMT_HDR_RGB_SCALE 16 rows of each of its 16 mode values (the top bits
+    of values 0-2); the other bits seeded. Then seeded formats and values
+    0..255 up to n rows (n at least 1,824)."""
+    rng = np.random.default_rng(seed)
+    fmts = [np.arange(16), np.arange(16)]
+    vals = [np.zeros((16, 8), np.int64), np.full((16, 8), 255)]
+    m, j, a = (x.ravel() for x in np.meshgrid(
+        np.arange(8), np.arange(4), np.arange(4), indexing="ij"))
+    top = np.repeat(np.stack([0 * m, m & 1, (m >> 1) & 1, m >> 2, j & 1,
+                              j >> 1, a & 1, a >> 1], 1), 4, 0)
+    for f in (11, 14, 15):
+        fmts.append(np.full(len(top), f))
+        vals.append(rng.integers(0, 128, top.shape) | (top << 7))
+    mv = np.repeat(np.arange(16), 16)
+    v = rng.integers(0, 256, (len(mv), 8))
+    v[:, 0] = (v[:, 0] & 0x3F) | ((mv & 3) << 6)
+    v[:, 1] = (v[:, 1] & 0x7F) | (((mv >> 2) & 1) << 7)
+    v[:, 2] = (v[:, 2] & 0x7F) | ((mv >> 3) << 7)
+    fmts.append(np.full(len(mv), 7))
+    vals.append(v)
+    k = sum(len(f) for f in fmts)
+    if n < k:
+        raise ValueError(f"n = {n}: the fixed rows alone are {k}")
+    fmts.append(rng.integers(0, 16, n - k))
+    vals.append(rng.integers(0, 256, (n - k, 8)))
+    return (np.concatenate(fmts).astype(np.int32),
+            np.concatenate(vals).astype(np.int32))

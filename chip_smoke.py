@@ -11,10 +11,11 @@ non-zero and never prints the last line:
    (2-plane refinement), K4 (partition line errors), K5 (one 1-plane HDR
    round), K6 and K7 (one 2-plane HDR round, its bootstrap), K8 (per-row
    table gather), K9 (the colour pack, one launch per pack call, in place
-   of the TPU's colour quantizer lookup) and the texel-sum kernel (the
-   glue's texel sums in the CPU's order; no TPU kernel) from
-   astcenc_torch/csrc with nvcc for sm_90a, one nvcc per source, started
-   together;
+   of the TPU's colour quantizer lookup), the texel-sum kernel (the
+   glue's texel sums in the CPU's order; no TPU kernel) and the colour
+   decode kernel (one launch per colour endpoint decode; no TPU kernel)
+   from astcenc_torch/csrc with nvcc for sm_90a, one nvcc per source,
+   started together;
 3. kernels: capture the real inputs of every kernel form from a 512x512
    main-path encode (K1 with 1 and 2 planes and 2 and 3 partitions, K2 at
    1-3 partitions, K3, K4 at 2 and 3 partitions, the texel-sum kernel in
@@ -22,6 +23,10 @@ non-zero and never prints the last line:
    PyTorch version on the card (the tolerances of tests/test_pallas.py;
    K4: 99.9% of the line errors within 1e-4 and 99% of the selected seeds
    equal; the texel sums bit for bit), timing both with CUDA events;
+   then the inputs of every colour endpoint decode of a 512x512 -ch
+   encode (the HDR rounds' calls), each decoded by the colour decode
+   kernel and by the plain decode on the card, bit for bit, the largest
+   timed both ways;
 3b. kernel forms: capture the inputs of each weighted form (per-block
    channel weights, USE_ALPHA_WEIGHT: K2 at 1-3 partitions, K3, K4, K5,
    K6, K7) and RGBM form (K2, K3) from 256x256 encodes at 6x6 -medium -a
@@ -140,9 +145,11 @@ The fused main paths (phases 5 and 8) must launch K8 no time, as on the
 TPU. The lines before the last are the kernel table as JSON (K1-K4
 launches counted on the LDR main path, K5-K7 and K9 on the HDR path, K8
 on the LDR refine-off path; "redesigned" marks the kernels whose first
-port was redesigned for the card: K1-K6, K8, K9), before it the
-texel-sum kernel's line ("port_kernels", the same keys, launches counted
-on the LDR main path; it replaces no TPU kernel) and the nvidia-smi line.
+port was redesigned for the card: K1-K6, K8, K9), before it the line of
+the kernels that replace no TPU kernel ("port_kernels", the same keys:
+the texel-sum kernel, launches counted on the LDR main path; the colour
+decode kernel, launches counted on the HDR path, none on the LDR main
+path) and the nvidia-smi line.
 The kernels line also lists each weighted and RGBM form ("refine_asr",
 "refine_rgbm", ..., with "form"), timed in phase 3b and its launches
 counted on its phase 17 configuration's encode;
@@ -502,7 +509,7 @@ def _profile(run):
 #: their forms (``launch.<kernel>.<form>``) print as "<label> <form>".
 _KERNELS = ("msearch", "refine", "refine2", "psearch", "refine_round",
             "refine_round2", "refine_boot2", "row_gather", "color_pack",
-            "texel_sum")
+            "texel_sum", "color_unpack")
 _LABELS = {"refine": "K2", "refine2": "K3", "psearch": "K4",
            "refine_round": "K5", "refine_round2": "K6",
            "refine_boot2": "K7"}
@@ -687,6 +694,23 @@ def _capture_sums(ts):
 
     def restore():
         ts.texel_sum = orig
+    return seen, restore
+
+
+def _capture_unpack(cuq):
+    """Record the inputs (profile, fmt, values) of every colour decode
+    that the wrapped router sees, cloned. Returns (seen, restore)."""
+    seen = []
+    orig = cuq.unpack_color_endpoints
+
+    def wrap(profile, fmt, values, *args, **kw):
+        seen.append((profile, fmt.clone(), values.clone()))
+        return orig(profile, fmt, values, *args, **kw)
+
+    cuq.unpack_color_endpoints = wrap
+
+    def restore():
+        cuq.unpack_color_endpoints = orig
     return seen, restore
 
 
@@ -1428,6 +1452,7 @@ def main() -> int:
     from astcenc_torch.ops import _build, gather, msearch, psearch, refine
     from astcenc_torch.ops import color_pack as cp
     from astcenc_torch.ops import color_pack_hdr as cph
+    from astcenc_torch.ops import color_unquant as cuq
     from astcenc_torch.ops import texel_sum as ts
     from astcenc_torch.utils import metrics
 
@@ -1449,7 +1474,8 @@ def main() -> int:
         how = f"cached libraries loaded in {build_s:.1f} s"
     print(f"build: K1 msearch.cu, K2 refine.cu, K3 refine2.cu, K4 psearch.cu, "
           f"K5 refine_round.cu, K6 and K7 refine_round2.cu, K8 row_gather.cu, "
-          f"K9 color_pack.cu, texel_sum.cu {how}", flush=True)
+          f"K9 color_pack.cu, texel_sum.cu, color_unpack.cu {how}",
+          flush=True)
 
     cfg = api.config_init(api.Profile.LDR, 6, 6, 1, api.Quality.MEDIUM, 0)
     ctx = api.context_alloc(cfg, device=dev)
@@ -1629,6 +1655,49 @@ def main() -> int:
               f"({event_ms:.4f} ms a call by events), plain {plain_ms:.3f} "
               f"ms, library {lib_ms:.4f} ms device, bound {bms:.5f} ms "
               f"({by})", flush=True)
+
+    # The colour decode kernel on every decode of a 512x512 -ch encode
+    # (the HDR rounds' calls), bit for bit against the plain decode on the
+    # card; the largest call timed.
+    ctx_u = api.context_alloc(api.config_init(
+        api.Profile.HDR_RGB_LDR_A, 6, 6, 1, api.Quality.MEDIUM, 0),
+        device=dev)
+    unpack_seen, restore_u = _capture_unpack(cuq)
+    try:
+        api.compress_image(ctx_u, testdata.synthetic_hdr_image(
+            CAPTURE, CAPTURE, args.seed + 1, independent_alpha=True))
+    finally:
+        restore_u()
+    assert unpack_seen, "no colour decode captured"
+    for prof_u, f, v in unpack_seen:
+        got = cuq.unpack_color_endpoints(prof_u, f, v)
+        want = cuq.unpack_color_endpoints_plain(prof_u, f, v)
+        diff = sum(int((g != w).sum()) for g, w in zip(got, want))
+        assert diff == 0, f"color_unpack: {diff} values differ"
+    prof_u, f, v = max(unpack_seen, key=lambda c: c[1].numel())
+    pairs = f.numel()
+    fmts_u = {int(k): int(n) for k, n in zip(*torch.unique(
+        f, return_counts=True))}
+    # Per pair: the format and 8 values read, 2x4 endpoints and 2 flags
+    # written.
+    nbytes_u = pairs * (4 + 32 + 32 + 2)
+    unpack_stats = {
+        "calls": len(unpack_seen), "pairs_largest": pairs,
+        "ms": _device_ms(lambda: cuq.unpack_color_endpoints(prof_u, f, v),
+                         20),
+        "event_ms": _time_ms(
+            lambda: cuq.unpack_color_endpoints(prof_u, f, v), 20),
+        "plain_ms": _time_ms(
+            lambda: cuq.unpack_color_endpoints_plain(prof_u, f, v), 5),
+        "bytes": nbytes_u}
+    bms, by = _bound(nbytes_u, 0.0)
+    print(f"kernels: color_unpack: {len(unpack_seen)} decodes of a "
+          f"{CAPTURE}x{CAPTURE} -ch encode, 0 values differ; the largest, "
+          f"{pairs} pairs at profile {prof_u} ({json.dumps(fmts_u)} by "
+          f"format): kernel {unpack_stats['ms']:.4f} ms device "
+          f"({unpack_stats['event_ms']:.4f} ms a call by events), plain "
+          f"{unpack_stats['plain_ms']:.3f} ms by events, bound "
+          f"{bms:.5f} ms ({by})", flush=True)
 
     # --- 3b. the weighted and RGBM kernel forms vs plain ---------------------
     form_stats = _form_phase(api, testdata, refine, psearch, dev, args.seed,
@@ -2144,14 +2213,26 @@ def main() -> int:
                         "redesigned": False})
     assert launches["texel_sum"] > 0, "texel_sum was not launched"
     bms, by = _bound(ts_stats["bytes"], ts_stats["ops"])
-    print(json.dumps({"port_kernels": [{
+    ts_line = {
         "name": "texel_sum", "route": "cuda",
         "source": "astcenc_torch/csrc/texel_sum.cu", "replaces": None,
         "launches": launches["texel_sum"], "max_abs_err": 0.0,
         "ms": ts_stats["ms"], "event_ms": ts_stats["event_ms"],
         "plain_ms": ts_stats["plain_ms"],
         "bound_ms": bms, "bound_by": by,
-        "library_ms": ts_stats["library_ms"]}]}))
+        "library_ms": ts_stats["library_ms"]}
+    # The colour decode: launches on the HDR path (phase 8), none on the
+    # LDR main path.
+    assert launches_h["color_unpack"] > 0, "color_unpack was not launched"
+    assert launches["color_unpack"] == 0, launches
+    bms, by = _bound(unpack_stats["bytes"], 0.0)
+    cu_line = {
+        "name": "color_unpack", "route": "cuda",
+        "source": "astcenc_torch/csrc/color_unpack.cu", "replaces": None,
+        "launches": launches_h["color_unpack"], "max_abs_err": 0.0,
+        "ms": unpack_stats["ms"], "event_ms": unpack_stats["event_ms"],
+        "plain_ms": unpack_stats["plain_ms"], "bound_ms": bms, "bound_by": by, "library_ms": None}
+    print(json.dumps({"port_kernels": [ts_line, cu_line]}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
-"""astcenc_torch kernels K1-K8 and the colour pack kernel (K9) against their
-plain PyTorch versions on a CUDA card, and encodes through the kernels
-against the plain path and with the refinement kernels switched off; the
-card's blocks against the JAX package's, from committed NumPy fixtures
+"""astcenc_torch kernels K1-K8, the colour pack kernel (K9), the texel-sum
+kernel and the colour decode kernel against their plain PyTorch versions
+on a CUDA card, and encodes through the kernels against the plain path
+and with the refinement kernels switched off; the card's blocks against the JAX package's, from committed NumPy fixtures
 (tests/data/torch_ldr, tests/data/torch_hdr); and the port's divisions by
 constants on the card against the CPU's. Needs a card (the kernels have no
 CPU build) and no jax, so it also runs where jax is missing:
@@ -404,6 +404,32 @@ def test_color_pack_kernel_matches_plain(cuda_device, launched, profile):
     assert (got[0] == want[0]).all() and (got[1] == want[1]).all()
 
 
+@pytest.mark.parametrize("profile", [0, 1, 2, 3])
+def test_color_unpack_kernel_matches_plain(cuda_device, launched, profile):
+    """The colour decode kernel against the plain decode, bit for bit on
+    all four outputs, on testdata.unpack_batch's rows (every format with
+    all values 0 and all 255, every mode of the HDR RGB, RGB scale and
+    alpha decodes, seeded rows) as (N, pc) with N * pc >= 100,000 and a
+    ragged last thread block: one launch per call, none with
+    ``use_kernel=False``."""
+    from astcenc_torch.ops import color_unquant as cuq
+    N, pc = 25013, 4
+    fmt, vals = (torch.from_numpy(a).to(cuda_device)
+                 for a in testdata.unpack_batch(50 + profile, N * pc))
+    fmt, vals = fmt.reshape(N, pc), vals.reshape(N, pc, 8)
+    assert set(fmt.unique().tolist()) == set(range(16))
+    launched("color_unpack")
+    got = cuq.unpack_color_endpoints(profile, fmt, vals)
+    assert launched("color_unpack") == 1
+    want = cuq.unpack_color_endpoints_plain(profile, fmt, vals)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert (g == w).all()
+    plain = cuq.unpack_color_endpoints(profile, fmt, vals, use_kernel=False)
+    assert launched("color_unpack") == 0
+    assert all((p == w).all() for p, w in zip(plain, want))
+
+
 def test_hdr_ch_crop_kernels_match_plain(cuda_device):
     """A 256x256 -ch crop through the kernels (the colour pack kernel on
     every pack) and through the plain versions: every block identical."""
@@ -426,13 +452,16 @@ def test_refine_off_ldr_crop_kernels_match_plain(cuda_device, monkeypatch):
     assert (got == want).all()
 
 
-def test_hdr_encode_kernels_match_plain(cuda_device):
-    """A 96x96 -cH (HDR alpha) encode through the kernels and through the
-    plain versions; HDR endpoint formats, HDR alpha (15) among them."""
+def test_hdr_encode_kernels_match_plain(cuda_device, launched):
+    """A 96x96 -cH (HDR alpha) encode through the kernels (the colour
+    decode kernel among them) and through the plain versions; HDR endpoint
+    formats, HDR alpha (15) among them."""
     from astcenc_torch.codec import decompress
     ctx = _hdr_ctx(cuda_device, api.Profile.HDR)
     img = testdata.synthetic_hdr_image(96, 96, 3, independent_alpha=True)
+    launched("color_unpack")
     got = api.compress_image(ctx, img)
+    assert launched("color_unpack") > 0
     want = tc.compress_image(ctx, img, use_kernels=False)
     assert (got == want).all(1).mean() >= 0.99
     fmts = decompress.endpoint_formats(ctx.torch_decode_tables(),

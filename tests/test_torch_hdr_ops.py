@@ -72,7 +72,7 @@ def test_softfloat_matches_jax():
         np.asarray(jsf.float16_to_float(p)).view(np.uint32))
 
 
-@pytest.mark.parametrize("profile", [2, 3])
+@pytest.mark.parametrize("profile", [2, 3, 0, 1])
 def test_unpack_hdr_matches_jax(profile):
     rng = np.random.default_rng(profile)
     fmt = rng.integers(0, 16, 8192).astype(np.int32)

@@ -1,4 +1,5 @@
-"""The wrappers of the colour pack kernel and of kernel K8 on the CPU.
+"""The wrappers of the colour pack kernel, of kernel K8 and of the colour
+decode kernel on the CPU.
 
 CPU tensors take the plain version and another device raises. The CUDA
 path runs here with ``torch.Tensor.is_cuda`` patched to True and the ctypes
@@ -19,10 +20,11 @@ from astcenc_torch import obs, testdata
 from astcenc_torch.ops import _build
 from astcenc_torch.ops import color_pack as cp
 from astcenc_torch.ops import color_pack_hdr as cph
+from astcenc_torch.ops import color_unquant as cuq
 from astcenc_torch.ops import gather
 
 _CTYPES = {np.float32: ctypes.c_float, np.int32: ctypes.c_int32,
-           np.int64: ctypes.c_int64}
+           np.int64: ctypes.c_int64, np.bool_: ctypes.c_bool}
 
 
 def _buf(addr, dtype, shape):
@@ -217,3 +219,104 @@ def test_row_lookup_kernel_wrapper_refuses(fake_card, case):
     with pytest.raises(err):
         gather.row_lookup_cuda(rows, idx)
     assert launch.calls == []
+
+
+class _UnpackLaunch:
+    """Stands in for astc_color_unpack: the plain decode on the raw
+    buffers."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, fmt, vals, B, profile, ep0, ep1, rgb_hdr, alpha_hdr,
+                 stream):
+        f = torch.from_numpy(_buf(fmt, np.int32, (B,)).copy())
+        v = torch.from_numpy(_buf(vals, np.int32, (B, 8)).copy())
+        for out, w, shape in zip((ep0, ep1, rgb_hdr, alpha_hdr),
+                                 cuq.unpack_color_endpoints_plain(profile, f,
+                                                                  v),
+                                 ((B, 4), (B, 4), (B,), (B,))):
+            _buf(out, w.numpy().dtype.type, shape)[:] = w.numpy()
+        self.calls.append({"B": B, "profile": profile, "stream": stream})
+        return 0
+
+
+@pytest.fixture
+def fake_unpack(fake_card, monkeypatch):
+    """fake_card, and the colour decode's launch replaced by its numpy
+    stand-in."""
+    launch = _UnpackLaunch()
+    monkeypatch.setattr(cuq, "_unpack_fn", launch)
+    return launch
+
+
+def _unpack_case(seed, n=500, pc=4):
+    fmt, vals = testdata.unpack_batch(seed, n * pc)
+    return (torch.from_numpy(fmt).reshape(n, pc),
+            torch.from_numpy(vals).reshape(n, pc, 8))
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("profile", [0, 1, 2, 3])
+def test_unpack_cpu_tensors_take_plain(monkeypatch, launched, profile,
+                                       use_kernel):
+    """CPU tensors take the plain decode whatever ``use_kernel`` says: no
+    launch, the plain version's outputs."""
+    def refuse(*args):
+        raise AssertionError("the kernel's wrapper was called")
+    monkeypatch.setattr(cuq, "unpack_cuda", refuse)
+    fmt, vals = _unpack_case(profile)
+    got = cuq.unpack_color_endpoints(profile, fmt, vals,
+                                     use_kernel=use_kernel)
+    want = cuq.unpack_color_endpoints_plain(profile, fmt, vals)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert launched("color_unpack") == 0
+
+
+def test_unpack_other_device_raises():
+    fmt = torch.zeros((8, 2), dtype=torch.int32, device="meta")
+    vals = torch.zeros((8, 2, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuq.unpack_color_endpoints(2, fmt, vals)
+
+
+@pytest.mark.parametrize("profile", [0, 1, 2, 3])
+def test_unpack_kernel_wrapper(fake_unpack, launched, profile):
+    """One launch per decode call, the (N, pc) batch flattened to B and
+    restored, int32 buffers even from strided int64 values, the outputs
+    the plain decode's in shape, dtype and value; none with
+    ``use_kernel=False``."""
+    fmt, vals = _unpack_case(30 + profile)
+    want = cuq.unpack_color_endpoints_plain(profile, fmt, vals)
+    strided = vals.to(torch.int64).transpose(0, 1).contiguous().transpose(
+        0, 1)
+    got = cuq.unpack_color_endpoints(profile, fmt, strided)
+    assert launched("color_unpack") == 1
+    assert fake_unpack.calls == [{"B": fmt.numel(), "profile": profile,
+                                  "stream": 77}]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    got = cuq.unpack_color_endpoints(profile, fmt, vals, use_kernel=False)
+    assert launched("color_unpack") == 0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", ["int64 fmt", "strided vals",
+                                  "batch mismatch", "values per pair"])
+def test_unpack_kernel_wrapper_refuses(fake_unpack, case):
+    """What the kernel does not take raises, and nothing launches."""
+    fmt, vals = (t.reshape(-1, *t.shape[2:]) for t in _unpack_case(1))
+    err = ValueError
+    if case == "int64 fmt":
+        fmt, err = fmt.to(torch.int64), TypeError
+    elif case == "strided vals":       # same shape, not contiguous
+        vals = vals.T.contiguous().T
+    elif case == "batch mismatch":
+        vals = vals[:-1]
+    else:
+        vals = vals[:, :6].contiguous()
+    with pytest.raises(err):
+        cuq.unpack_cuda(2, fmt, vals)
+    assert fake_unpack.calls == []
