@@ -33,8 +33,12 @@ host waits on the device, a ``nonzero``, a scalar read or a blocking copy.
 Counters: ``sync.<site>`` per wait; ``launch.<kernel>`` per launch of one
 of the port's CUDA kernels and ``launch.<kernel>.<form>`` for the forms
 ``asr``, ``rgbm`` and ``asr+rgbm``; ``blocks.stage1``, ``blocks.const``,
-``blocks.stage2a``, ``blocks.stage2b.pc<p>``; ``copy.h2d.bytes``,
-``copy.h2d.count``, ``copy.d2h.bytes``, ``copy.d2h.count``.
+``blocks.stage2a``, ``blocks.stage2b.pc<p>``;
+``psearch.partitionings.pc<p>``, the block-partitionings whose line errors
+are scored at partition count ``p`` (N x S of each
+``ops/psearch.py::line_errors`` call, from host shapes, kernel or plain
+version alike); ``copy.h2d.bytes``, ``copy.h2d.count``,
+``copy.d2h.bytes``, ``copy.d2h.count``.
 """
 
 from __future__ import annotations

@@ -165,6 +165,8 @@ def line_errors(texels, uses_alpha, top, pot_table, count_table, P: int,
     tensors. ``use_kernel=False`` runs the plain version anywhere."""
     args = (texels, uses_alpha, top, pot_table, count_table, P, wie, cw,
             cw_scale)
+    if obs.on:
+        obs.count(f"psearch.partitionings.pc{P}", top.shape[0] * top.shape[1])
     if texels.is_cuda and use_kernel:
         return line_errors_cuda(*args)
     if not texels.is_cuda and texels.device.type != "cpu":

@@ -1075,6 +1075,23 @@ def test_card_encode_matches_cpu(cuda_device, hdr):
     assert share == 1.0, diff.tolist()
 
 
+def test_12x12_thorough_crop_matches_cpu(cuda_device):
+    """The benchmark's 12x12 -thorough cell (LOW preset row: T 144, up to
+    4 partitions): a 144x144 crop of whole blocks from the top centre of
+    its first texture (texture 0 of ``content_seed`` 13001, an alpha of its
+    own on the right half) encodes to the same blocks on the card as by
+    the CPU port."""
+    img = testdata.synthetic_image(1024, 1024, [13001, 0],
+                                   independent_alpha=True)[:144, 432:576]
+    cfg = api.config_init(api.Profile.LDR, 12, 12, 1, api.Quality.THOROUGH, 0)
+    got = api.compress_image(api.context_alloc(cfg, device=cuda_device), img)
+    want = api.compress_image(api.context_alloc(cfg, device="cpu"), img)
+    same = (got == want).all(1)
+    print(f"12x12 -thorough 144x144: {same.mean():.6f} of blocks identical "
+          f"card vs CPU; differing blocks {np.flatnonzero(~same).tolist()}")
+    assert same.all(), np.flatnonzero(~same).tolist()
+
+
 def _psnr(a, b):
     mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
     return 10.0 * np.log10(255.0 ** 2 / mse)

@@ -6,7 +6,8 @@ off and once on (with the -dtrace tree, its stage 1 under a CPU-only
 ``torch.profiler``), and twice more at once in two threads. The blocks,
 the nesting of the spans, the counters against the encode's own masks
 and the -dtrace tree, thread safety, and the shared clock with the
-profiler are held.
+profiler are held. A 24x24 texture at 12x12 -thorough holds the partition
+search's counter against its line-error calls.
 """
 
 import threading
@@ -18,6 +19,7 @@ import torch
 from astcenc_torch import api, obs, testdata
 from astcenc_torch.codec import compress
 from astcenc_torch.codec.trace import Tracer, TraceNode
+from astcenc_torch.ops import psearch
 
 NAMES = {"compress_image", "image_to_blocks", "chunk", "h2d", "sync",
          "stage1", "stage2a", "stage2b", "finalize", "d2h", "assemble"}
@@ -169,4 +171,43 @@ def test_disabled_sites_record_nothing_and_collect_clears(run):
     got = obs.collect()
     assert [s.name for s in got.spans] == ["outer"]
     assert inner.end is None and got.counters == {"x": 3}
+    assert obs.collect().counters == {}
+
+
+def test_partitionings_count_the_line_error_calls(monkeypatch):
+    """``psearch.partitionings.pc<p>`` is the sum of N x S over the
+    line-error calls at partition count p: a 24x24 texture (4 blocks) at
+    12x12 -thorough, whose LOW preset row scores 82, 60 and 30
+    partitionings a block at 2, 3 and 4 partitions. A call with the
+    tracing off records nothing."""
+    cfg = api.config_init(api.Profile.LDR, 12, 12, 1, api.Quality.THOROUGH, 0)
+    ctx = api.context_alloc(cfg, device="cpu")
+    img = testdata.synthetic_image(24, 24, 3, independent_alpha=True)
+    line_errors = psearch.line_errors
+    calls = []
+
+    def recorded(*args, **kw):
+        calls.append((args, kw))
+        return line_errors(*args, **kw)
+
+    monkeypatch.setattr(psearch, "line_errors", recorded)
+    obs.collect()
+    obs.enable()
+    try:
+        api.compress_image(ctx, img)
+    finally:
+        obs.disable()
+    c = obs.collect().counters
+    want, widths = {}, {}
+    for args, _ in calls:
+        N, S = args[2].shape
+        key = f"psearch.partitionings.pc{args[5]}"
+        want[key] = want.get(key, 0) + N * S
+        widths[args[5]] = S
+    assert widths == {2: 82, 3: 60, 4: 30}
+    assert {k: v for k, v in c.items()
+            if k.startswith("psearch.partitionings.")} == want
+    assert c["blocks.stage1"] == 4
+    args, kw = calls[-1]
+    line_errors(*args, **kw)
     assert obs.collect().counters == {}
