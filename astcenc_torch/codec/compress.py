@@ -32,7 +32,7 @@ import torch
 
 from .. import config as host_config
 from .. import obs
-from ..ops import gather
+from ..ops import _build
 from ..ops import softfloat as sf
 from ..ops import texel_sum as ts
 from . import partition_search, physical, trial
@@ -210,14 +210,12 @@ def _scatter(full: dict, idx, part: dict) -> dict:
     return out
 
 
-def stage1_1plane(ctx, texels, use_kernels: bool = True,
-                  disabled: frozenset = frozenset(), trace=None):
+def stage1_1plane(ctx, texels, trace=None):
     """Block state, constant detection and the 1-partition 1-plane passes
     (compress.py:290-411). Returns (scb, aux); aux holds what the later
     stages and finalize read: the block state, the error threshold, the
     weight-quant limit and best error the later trials use, and the
-    2-plane gate. ``use_kernels``/``disabled``: ``trial._switches``;
-    ``trace``: a ``_Trace`` or None."""
+    2-plane gate. ``trace``: a ``_Trace`` or None."""
     cfg = ctx.config
     et = ctx.encoder_tables()
     dt = ctx.torch_decode_tables()
@@ -271,8 +269,7 @@ def stage1_1plane(ctx, texels, use_kernels: bool = True,
         thr1 = error_threshold * errorval_mult[i] * overshoot
         recs = trial.trial1_records(
             st, ctx.pass_tables("always" if i == 0 else "full"), cfg,
-            profile, _u8_mask(cfg), full_limit, ~scb["finished"],
-            use_kernels=use_kernels, disabled=disabled)
+            profile, _u8_mask(cfg), full_limit, ~scb["finished"])
         if trace is not None:
             trace.passes(recs, 1, 1, ~scb["finished"], only_always=(i == 0))
         scb, errv = trial.apply_records_1plane(scb, recs, thr1, 1, pindex)
@@ -300,8 +297,7 @@ def stage1_1plane(ctx, texels, use_kernels: bool = True,
 
 
 def stage2a_2plane(ctx, st, scb, quant_limit, best0, error_threshold,
-                   overshoot: float, use_kernels: bool = True,
-                   disabled: frozenset = frozenset(), trace=None):
+                   overshoot: float, trace=None):
     """1-partition 2-plane trials (compress.py:432-494) on blocks the
     correlation gate left eligible: the four plane-2 components in one
     folded batch, then per component the reference's sequential take and
@@ -319,8 +315,7 @@ def stage2a_2plane(ctx, st, scb, quant_limit, best0, error_threshold,
     ext_valid = torch.stack(cand_act, 1) & ~scb["finished"][:, None]
     recs = trial.trial2_records(st, ctx.pass_tables("two"), cfg,
                                 int(cfg.profile), _u8_mask(cfg), quant_limit,
-                                ext_valid, use_kernels=use_kernels,
-                                disabled=disabled)
+                                ext_valid)
     stopped = torch.zeros((N,), dtype=torch.bool, device=dev)
     for i, comp in enumerate(trial.COMP_ORDER):
         recs_i = {k: v.reshape((4, N) + tuple(v.shape[1:]))[i]
@@ -360,9 +355,7 @@ def multipart_pcs(ctx) -> tuple:
 
 
 def stage2b_one_pc(ctx, st, scb, quant_limit, best_prev, pc: int,
-                   error_threshold, overshoot: float,
-                   use_kernels: bool = True,
-                   disabled: frozenset = frozenset(), trace=None):
+                   error_threshold, overshoot: float, trace=None):
     """One partition count of the multi-partition search
     (compress.py:533-619): rank the partitionings, try the best few in one
     folded batch, replay the sequential take with the inner early-outs,
@@ -377,7 +370,7 @@ def stage2b_one_pc(ctx, st, scb, quant_limit, best_prev, pc: int,
     tabs = ctx.partition_tables(pc)
     seeds, valid = partition_search.find_best_partition_candidates(
         st, tabs, T, trial.config_cw(cfg), pc, _req_index(cfg, pc),
-        ntrials, use_kernels=use_kernels)
+        ntrials)
     ntr = min(ntrials, seeds.shape[1])
     rows = tabs.packed_index[seeds[:, :ntr].clamp(0, 1023).to(torch.int64)
                              ].clamp(0, tabs.pot.shape[0] - 1)
@@ -388,7 +381,7 @@ def stage2b_one_pc(ctx, st, scb, quant_limit, best_prev, pc: int,
     recs = trial.trial1_records(
         st_f, ctx.pass_tables("full", pc), cfg, int(cfg.profile),
         _u8_mask(cfg), quant_limit.repeat(ntr), ext, pot=tabs.pot[rows],
-        counts=tabs.counts[rows], use_kernels=use_kernels, disabled=disabled)
+        counts=tabs.counts[rows])
     best_this = torch.full((N,), ERROR_CALC_DEFAULT, device=dev)
     for ti in range(ntr):
         recs_i = {k: v.reshape((ntr, N) + tuple(v.shape[1:]))[ti]
@@ -441,17 +434,15 @@ def _nonzero(mask, site: str):
     return idx
 
 
-def compress_symbolic(ctx, texels, use_kernels: bool = True,
-                      disabled: frozenset = frozenset(), trace=None):
+def compress_symbolic(ctx, texels, trace=None):
     """Stage 1 -> 2a -> 2b on one chunk of (N, T, 4) float32 texels on
     ctx.device (compress.py:268-286). Returns (scb, aux) before the
     finalize step. ``trace``: a ``_Trace`` over the chunk's rows, or
     None."""
     cfg = ctx.config
-    kw = {"use_kernels": use_kernels, "disabled": disabled}
     N = texels.shape[0]
     sp = obs.on and obs.begin("stage1", blocks=N)
-    scb, aux = stage1_1plane(ctx, texels, **kw, trace=trace)
+    scb, aux = stage1_1plane(ctx, texels, trace=trace)
     if sp:
         obs.end(sp)
         obs.count("blocks.stage1", N)
@@ -467,7 +458,7 @@ def compress_symbolic(ctx, texels, use_kernels: bool = True,
                        "compress.stage2a.nonzero")
         if idx.numel():
             sub = stage2a_2plane(ctx, _sub(st, idx), _sub(scb, idx), ql[idx],
-                                 best0[idx], thr[idx], ovs, **kw,
+                                 best0[idx], thr[idx], ovs,
                                  trace=trace and trace.sub(idx))
             scb = _scatter(scb, idx, sub)
         if sp:
@@ -484,7 +475,7 @@ def compress_symbolic(ctx, texels, use_kernels: bool = True,
             if idx.numel():
                 sub, bt = stage2b_one_pc(
                     ctx, _sub(st, idx), _sub(scb, idx), ql[idx],
-                    best_prev[idx], pc, thr[idx], ovs, **kw,
+                    best_prev[idx], pc, thr[idx], ovs,
                     trace=trace and trace.sub(idx))
                 scb = _scatter(scb, idx, sub)
                 best_this[idx] = bt
@@ -497,12 +488,10 @@ def compress_symbolic(ctx, texels, use_kernels: bool = True,
     return scb, aux
 
 
-def compress_blocks(ctx, texels, use_kernels: bool = True,
-                    disabled: frozenset = frozenset(), trace=None):
+def compress_blocks(ctx, texels, trace=None):
     """Compress one chunk of (N, T, 4) float32 texels on ctx.device to
     (N, 16) uint8 blocks."""
-    scb, aux = compress_symbolic(ctx, texels, use_kernels=use_kernels,
-                                 disabled=disabled, trace=trace)
+    scb, aux = compress_symbolic(ctx, texels, trace=trace)
     sp = obs.on and obs.begin("finalize", blocks=texels.shape[0])
     out = finalize_pack(ctx.torch_decode_tables(), ctx.encoder_tables(),
                         scb, aux, int(ctx.config.profile))
@@ -636,61 +625,60 @@ def _trace_positions(tracer, rows, block_dims, shape):
 
 
 def compress_image(ctx, image, swizzle=(0, 1, 2, 3), progress_callback=None,
-                   use_kernels: bool = True, tracer=None):
+                   tracer=None):
     """Compress an image array to (N, 16) uint8 blocks in raster order.
 
-    ``use_kernels=False`` runs the plain PyTorch versions of the kernels on
-    any device (for comparison on the card); the public API never sets it.
-    The kernel families that ``ASTC_DISABLE_KERNELS`` switches off are read
-    once per call (``gather.disabled_kernels``). The call clears the
-    context's cancel flag at its start and reads it before each chunk: once
-    it is set (``api.compress_cancel``), the blocks of the chunks not
-    started come back as zero bytes (compress.py:1086-1095). ``tracer``
+    ``ASTC_DISABLE_KERNELS`` is read once per call
+    (``ops._build.kernel_scope``); inside ``ops._build.plain()`` every
+    kernel's plain version runs, for comparison on the card. The call
+    clears the context's cancel flag at its start and reads it before each
+    chunk: once it is set (``api.compress_cancel``), the blocks of the
+    chunks not started come back as zero bytes (compress.py:1086-1095).
+    ``tracer``
     (``codec.trace.Tracer``), if given, receives one block node per block
     with its position, and the pass and candidate nodes of each stage that
     block ran (compress.py:1104-1116); the blocks are the untraced ones.
     """
     ctx.cancel_requested = False
-    disabled = gather.disabled_kernels()
-    sp = obs.on and obs.call("compress_image")
-    pp = obs.on and obs.begin("image_to_blocks")
-    blocks = image_to_blocks(ctx, image, swizzle)
-    if pp:
-        obs.end(pp)
-    n = blocks.shape[0]
-    if sp:
-        shape = np.shape(image)
-        sp.attrs.update(texels=int(np.prod(shape[:-1])), blocks=n,
-                        chunks=-(-n // CHUNK))
-    outs = []
-    for lo in range(0, n, CHUNK):
-        if ctx.cancel_requested:
-            outs.append(torch.zeros((n - lo, 16), dtype=torch.uint8))
-            break
-        cp = obs.on and obs.begin("chunk", first=lo,
-                                  blocks=min(CHUNK, n - lo))
-        tex = _copy(torch.from_numpy(blocks[lo:lo + CHUNK]), ctx.device,
-                    "h2d")
-        trace = None
-        if tracer is not None:
-            trace = _Trace(tracer, np.arange(lo, lo + tex.shape[0]),
-                           ctx.bsd, ctx.config.tune_refinement_limit + 1)
-            _trace_positions(tracer, trace.rows, ctx.block_dims,
-                             np.asarray(image).shape)
-        out = compress_blocks(ctx, tex, use_kernels=use_kernels,
-                              disabled=disabled, trace=trace)
-        outs.append(_copy(out, "cpu", "d2h"))
-        if cp:
-            obs.end(cp)
-        if progress_callback is not None:
-            progress_callback(min(100.0, 100.0 * min(lo + CHUNK, n) / n))
-    ap = obs.on and obs.begin("assemble")
-    out = torch.cat(outs).numpy()
-    if ap:
-        obs.end(ap)
-    if sp:
-        obs.end(sp)
-    return out
+    with _build.kernel_scope():
+        sp = obs.on and obs.call("compress_image")
+        pp = obs.on and obs.begin("image_to_blocks")
+        blocks = image_to_blocks(ctx, image, swizzle)
+        if pp:
+            obs.end(pp)
+        n = blocks.shape[0]
+        if sp:
+            shape = np.shape(image)
+            sp.attrs.update(texels=int(np.prod(shape[:-1])), blocks=n,
+                            chunks=-(-n // CHUNK))
+        outs = []
+        for lo in range(0, n, CHUNK):
+            if ctx.cancel_requested:
+                outs.append(torch.zeros((n - lo, 16), dtype=torch.uint8))
+                break
+            cp = obs.on and obs.begin("chunk", first=lo,
+                                      blocks=min(CHUNK, n - lo))
+            tex = _copy(torch.from_numpy(blocks[lo:lo + CHUNK]), ctx.device,
+                        "h2d")
+            trace = None
+            if tracer is not None:
+                trace = _Trace(tracer, np.arange(lo, lo + tex.shape[0]),
+                               ctx.bsd, ctx.config.tune_refinement_limit + 1)
+                _trace_positions(tracer, trace.rows, ctx.block_dims,
+                                 np.asarray(image).shape)
+            out = compress_blocks(ctx, tex, trace=trace)
+            outs.append(_copy(out, "cpu", "d2h"))
+            if cp:
+                obs.end(cp)
+            if progress_callback is not None:
+                progress_callback(min(100.0, 100.0 * min(lo + CHUNK, n) / n))
+        ap = obs.on and obs.begin("assemble")
+        out = torch.cat(outs).numpy()
+        if ap:
+            obs.end(ap)
+        if sp:
+            obs.end(sp)
+        return out
 
 
 def _copy(t, device, way: str):

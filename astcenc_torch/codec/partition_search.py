@@ -182,8 +182,7 @@ def _weight_imprecision(texel_count: int) -> float:
 def find_best_partition_candidates(st, tabs, texel_count: int, cw,
                                    partition_count: int,
                                    partition_search_limit: int,
-                                   requested_candidates: int,
-                                   use_kernels: bool = True):
+                                   requested_candidates: int):
     """Top partitioning candidates per block (reference:
     find_best_partition_candidates, :551-779; port of
     partition_search.py:138-263).
@@ -211,8 +210,7 @@ def find_best_partition_candidates(st, tabs, texel_count: int, cw,
     uncor, samec = psearch_ops.line_errors(
         texels.contiguous(), st["uses_alpha"].to(torch.int32).contiguous(),
         top.contiguous(), tabs.pot, tabs.counts, P,
-        _weight_imprecision(texel_count), cw, cw_scale=cw_scale,
-        use_kernel=use_kernels)
+        _weight_imprecision(texel_count), cw, cw_scale=cw_scale)
     return select_candidates(uncor, samec, tabs.seed, top.to(torch.int64),
                              reqc)
 

@@ -5,20 +5,12 @@ compress_symbolic_block_for_partition_1plane / _2planes,
 astcenc_compress_symbolic.cpp:353-1037): per-mode search, candidate
 refinement and the reference's sequential record selection, as batched
 tensor ops. The mode search goes through kernel K1 (``ops/msearch.py``),
-the refinement rounds through K2 (1 plane, 1-4 partitions) and K3
-(2 planes) (``ops/refine.py``) on the card. The HDR profiles refit and
-pack in PyTorch between rounds and run each round through K5 (1 plane) or
-K6 and K7 (2 planes), as the JAX package does (trial.py:624-659,
-:1192-1226).
-
-``ASTC_DISABLE_KERNELS`` switches the ``msearch`` and ``refine`` families
-off where the JAX package honours them (trial.py:431-433, :596-598,
-:1024-1026, :1164-1166): ``compress.compress_image`` reads it once per
-image (``gather.disabled_kernels``) and hands the set down as
-``disabled``. With
-``refine`` off the trials run the plain refinement (the JAX package's XLA
-branches), whose realign lookups still go to kernel K8 and whose colour
-packs to the colour pack kernel K9.
+the refinement rounds through ``ops/refine.py``: K2 (1 plane, 1-4
+partitions) and K3 (2 planes) for the LDR profiles on the card; the HDR
+profiles refit and pack in PyTorch between rounds and run each round
+through K5 (1 plane) or K6 and K7 (2 planes), as the JAX package does
+(trial.py:624-659, :1192-1226). Which of them runs is for ``ops/`` to
+decide (``ops/_build.py``, the kernel switch).
 """
 
 from __future__ import annotations
@@ -30,16 +22,13 @@ import numpy as np
 import torch
 
 from .. import config as host_config
-from .. import obs
 from ..tables import quant
 from ..ops import angular as ang
-from ..ops import color_pack_hdr as cph
 from ..ops import color_unquant as cuq
 from ..ops import formats as fmts
 from ..ops import gather
 from ..ops import ideal as ideal_ops
 from ..ops import msearch as msearch_ops
-from ..ops import recompute as recompute_ops
 from ..ops import refine as refine_ops
 
 ERROR_CALC_DEFAULT = fmts.ERROR_CALC_DEFAULT
@@ -328,14 +317,6 @@ def _w64(w):
     return out
 
 
-def _switches(use_kernels: bool, disabled: frozenset):
-    """(K1 runs the mode search, the refinement kernels run the rounds):
-    ``use_kernels=False`` runs every plain version, ``disabled`` names the
-    kernel families switched off."""
-    return (use_kernels and "msearch" not in disabled,
-            use_kernels and "refine" not in disabled)
-
-
 def _color_error_tables(eci, ep0, ep1, counts, cw, profile: int):
     if profile >= HDR_RGB_LDR_A:
         return fmts.color_error_tables_hdr(eci, ep0, ep1, counts, cw,
@@ -343,142 +324,8 @@ def _color_error_tables(eci, ep0, ep1, counts, cw, profile: int):
     return fmts.color_error_tables_ldr(eci, ep0, ep1, counts, cw)
 
 
-def _hdr_rounds_1plane(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
-                       pot, ep0, ep1, C: int, R: int, u8_mask: bool,
-                       cw: tuple, profile: int, use_kernels: bool,
-                       refine: bool, cw_scale=None, rgbm: float = 0.0):
-    """The R rounds of a 1-plane HDR trial (JAX trial.py:624-659): one
-    bootstrap round (K5 with no realign) for the first infill, then per
-    round the least-squares refit with the RGBO vector, the pack of both
-    arms, the decode (like the pack, on its kernel unless ``use_kernels``
-    is False) and one K5 round. Arguments and outputs are those of
-    ``refine.trial1_refine``; with ``refine`` False the rounds run their
-    plain version (its lookups on K8 unless ``use_kernels`` is False)."""
-    NC, W = wgrid0.shape
-    cw_l = refine_ops.lane_cw(cw, cw_scale, C)
-    pc = fmt_req.shape[1]
-    dev = texels.device
-    tex = texels.repeat_interleave(C, 0)
-    pmask = ideal_ops.partition_onehot(pot)[..., :pc].repeat_interleave(C, 0)
-    counts = pmask.sum(1)
-    e0 = ep0.repeat_interleave(C, 0)
-    e1 = ep1.repeat_interleave(C, 0)
-    wait = obs.on and obs.sync("trial.big_1plane", "h2d")
-    big = torch.tensor(refine_ops._BIG, device=dev)
-    if wait:
-        obs.end(wait, big.nbytes)
-
-    def rnd(grid, alive, d0, d1, ncolors):
-        return refine_ops.refine_round_1plane(
-            pt, grid, dm, wq, alive, d0, d1, texels, pot, C, ncolors,
-            u8_mask, cw, cw_scale=cw_scale, rgbm=rgbm, use_kernel=refine,
-            gathers=use_kernels)
-
-    zero = torch.zeros((NC, 4, 4), dtype=torch.int32, device=dev)
-    undec = rnd(wgrid0, alive, zero, zero, 0)["undec"]
-    wgrid = wgrid0
-    out = {k: [] for k in ("fmt", "vals", "useq", "match", "wpost",
-                           "err_post")}
-    for r in range(R):
-        rc = recompute_ops.recompute_ideal_colors_1plane(
-            tex, pmask, counts, undec, cw_l, e0, e1, is_hdr=True)
-        e0, e1 = rc["ep0"], rc["ep1"]
-
-        def pack(q):
-            f, v = cph.pack_color_endpoints(
-                profile, *(rc[k].reshape(NC * pc, 4)
-                           for k in ("ep0", "ep1", "rgbs", "rgbo")),
-                fmt_req.reshape(NC * pc), q.repeat_interleave(pc),
-                use_kernel=use_kernels)
-            return f.reshape(NC, pc), v.reshape(NC, pc, 8)
-
-        fmt4, vals4, use_q, matched = refine_ops.pack_partitions(pack, cq,
-                                                                cqm, pc)
-        d0, d1, _, _ = cuq.unpack_color_endpoints(
-            profile, fmt4, vals4, use_kernel=use_kernels)
-        res = rnd(wgrid, alive, d0.contiguous(), d1.contiguous(),
-                  pt.ncolors)
-        if r == 0:
-            err_pre = torch.where(alive, res["err_pre"], big)
-        wgrid = torch.where(alive[:, None], res["grid"], wgrid)
-        out["err_post"].append(torch.where(alive, res["err_post"], big))
-        alive = alive & res["adjusted"]
-        undec = res["undec"]
-        for k, v in (("fmt", fmt4), ("vals", vals4), ("useq", use_q),
-                     ("match", matched), ("wpost", wgrid)):
-            out[k].append(v)
-    res = {k: torch.stack(v) for k, v in out.items()}
-    res["err_pre"] = err_pre
-    return res
-
-
-def _hdr_rounds_2plane(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
-                       texels, data_mean, ep0, ep1, C: int, R: int,
-                       u8_mask: bool, cw: tuple, profile: int,
-                       use_kernels: bool, refine: bool, cw_scale=None,
-                       rgbm: float = 0.0):
-    """The R rounds of a 2-plane HDR trial (JAX trial.py:1192-1226): one
-    K7 launch for both first infills, then per round the 2-plane refit
-    with the RGBO vector, the pack and the decode (on their kernels unless
-    ``use_kernels`` is False) and one K6 round. Arguments and outputs are
-    those of ``refine.trial2_refine``; with ``refine``
-    False the rounds run their plain version."""
-    NC, W = wg1_0.shape
-    N = ep0.shape[0]
-    dev = texels.device
-    cw_l = refine_ops.lane_cw(cw, cw_scale, C)
-    rows = torch.arange(N, device=dev) % texels.shape[0]
-    tex = texels[rows].repeat_interleave(C, 0)
-    mean = data_mean[rows].repeat_interleave(C, 0)
-    p2c_f = p2c.repeat_interleave(C, 0)
-    e0 = ep0.repeat_interleave(C, 0)
-    e1 = ep1.repeat_interleave(C, 0)
-    wait = obs.on and obs.sync("trial.big_2plane", "h2d")
-    big = torch.tensor(refine_ops._BIG, device=dev)
-    if wait:
-        obs.end(wait, big.nbytes)
-
-    def rnd(g1, g2, alive, d0, d1, ncolors):
-        return refine_ops.refine_round_2plane(
-            pt, g1, g2, dm, wq, alive, p2c, d0, d1, texels, C, ncolors,
-            u8_mask, cw, cw_scale=cw_scale, rgbm=rgbm, use_kernel=refine,
-            gathers=use_kernels)
-
-    zero = torch.zeros((NC, 4), dtype=torch.int32, device=dev)
-    boot = rnd(wg1_0, wg2_0, alive, zero, zero, 0)
-    u1, u2 = boot["undec1"], boot["undec2"]
-    wg1, wg2 = wg1_0, wg2_0
-    out = {k: [] for k in ("fmt", "vals", "w1post", "w2post", "err_post")}
-    for r in range(R):
-        rc = recompute_ops.recompute_ideal_colors_2planes(
-            tex, u1, u2, p2c_f, cw_l, mean, e0, e1, is_hdr=True)
-        e0, e1 = rc["ep0"], rc["ep1"]
-        fmt, vals = cph.pack_color_endpoints(
-            profile, e0, e1, rc["rgbs"], rc["rgbo"], fmt_req, cq,
-            use_kernel=use_kernels)
-        d0, d1, _, _ = cuq.unpack_color_endpoints(
-            profile, fmt, vals, use_kernel=use_kernels)
-        res = rnd(wg1, wg2, alive, d0.contiguous(), d1.contiguous(),
-                  pt.ncolors)
-        if r == 0:
-            err_pre = torch.where(alive, res["err_pre"], big)
-        a = alive[:, None]
-        wg1 = torch.where(a, res["grid1"], wg1)
-        wg2 = torch.where(a, res["grid2"], wg2)
-        out["err_post"].append(torch.where(alive, res["err_post"], big))
-        alive = alive & res["adjusted"]
-        u1, u2 = res["undec1"], res["undec2"]
-        for k, v in (("fmt", fmt), ("vals", vals), ("w1post", wg1),
-                     ("w2post", wg2)):
-            out[k].append(v)
-    res = {k: torch.stack(v) for k, v in out.items()}
-    res["err_pre"] = err_pre
-    return res
-
-
 def trial1_records(st, pt, cfg, profile: int, u8_mask: bool, quant_limit,
-                   ext_valid, pot=None, counts=None, use_kernels: bool = True,
-                   disabled: frozenset = frozenset()):
+                   ext_valid, pot=None, counts=None):
     """Per-mode search + candidate refinement of a 1-plane trial over one
     candidate partitioning per block (trial.py:304-757). Returns the
     per-record tensors that apply_records_1plane consumes, in reference
@@ -488,7 +335,7 @@ def trial1_records(st, pt, cfg, profile: int, u8_mask: bool, quant_limit,
     (``pass_tables``; pt.pc partitions) on the texels' device; quant_limit
     (N,) int32; ext_valid (N,) bool lanes that may refine; pot (N, T)
     int32 partition of each texel and counts (N, 4) texels per partition
-    (None for one partition); use_kernels/disabled: see ``_switches``.
+    (None for one partition).
     """
     texels = st["texels"]
     dev = texels.device
@@ -496,7 +343,6 @@ def trial1_records(st, pt, cfg, profile: int, u8_mask: bool, quant_limit,
     pc = pt.pc
     cw = effective_cw(cfg, st)
     cws = st.get("cw_scale")
-    k_msearch, k_refine = _switches(use_kernels, disabled)
     if pot is None:
         pot = torch.zeros((N, T), dtype=torch.int32, device=dev)
         counts = torch.full((N, 1), T, dtype=torch.int32, device=dev)
@@ -527,8 +373,7 @@ def trial1_records(st, pt, cfg, profile: int, u8_mask: bool, quant_limit,
     ms = msearch_ops.mode_search(
         pt, ei["weights"].contiguous(), ei["weight_error_scale"].contiguous(),
         min_wt_cutoff.contiguous(), max_wq.contiguous(),
-        comb_err.contiguous(), comb_fmt.contiguous(), C,
-        use_kernel=k_msearch)
+        comb_err.contiguous(), comb_fmt.contiguous(), C)
     valid_f = (ms["valid"] & ext_valid[:, None]).reshape(NC).contiguous()
     wgrid0 = ms["uq"].reshape(NC, -1).contiguous()
 
@@ -540,12 +385,7 @@ def trial1_records(st, pt, cfg, profile: int, u8_mask: bool, quant_limit,
             texels.contiguous(), pot.to(torch.int32).contiguous(),
             ep0.contiguous(), ep1.contiguous(), C, R, u8_mask,
             config_cw(cfg), profile)
-    kw = {"cw_scale": cws, "rgbm": rgbm_scale(cfg)}
-    if profile >= HDR_RGB_LDR_A:
-        rf = _hdr_rounds_1plane(*args, use_kernels, k_refine, **kw)
-    else:
-        rf = refine_ops.trial1_refine(*args, **kw, use_kernel=k_refine,
-                                      gathers=use_kernels)
+    rf = refine_ops.trial1_refine(*args, cw_scale=cws, rgbm=rgbm_scale(cfg))
 
     def rec(name):
         return _records(rf[name][0], rf[name], N, C)
@@ -616,14 +456,12 @@ COMP_ORDER = (3, 2, 1, 0)
 
 
 def trial2_records(st, pt, cfg, profile: int, u8_mask: bool, quant_limit,
-                   ext_valid, use_kernels: bool = True,
-                   disabled: frozenset = frozenset()):
+                   ext_valid):
     """The four 2-plane trials of each block, folded into one (4N,) batch
     in component order 3, 2, 1, 0 (trial.py:856-1315, fold_all=True).
 
     pt: the "two" pass tables; quant_limit (N,) int32; ext_valid (N, 4)
-    bool per block and component in COMP_ORDER; use_kernels/disabled: see
-    ``_switches``. Returns records shaped
+    bool per block and component in COMP_ORDER. Returns records shaped
     (4N, C*K, ...), row c*N + n for component COMP_ORDER[c] of block n.
     """
     texels = st["texels"]
@@ -631,7 +469,6 @@ def trial2_records(st, pt, cfg, profile: int, u8_mask: bool, quant_limit,
     N0, T, _ = texels.shape
     cw = effective_cw(cfg, st)
     cws = st.get("cw_scale")
-    k_msearch, k_refine = _switches(use_kernels, disabled)
     pmask = torch.ones((N0, T, 1), device=dev)
     counts = torch.full((N0, 1), T, dtype=torch.int32, device=dev)
     ua = st["uses_alpha"]
@@ -688,7 +525,7 @@ def trial2_records(st, pt, cfg, profile: int, u8_mask: bool, quant_limit,
         max_wq.contiguous(), be[:, 0].contiguous(), fm[:, 0].contiguous(),
         C, wei2=ei2["weights"].contiguous(),
         wes2=ei2["weight_error_scale"].contiguous(),
-        mcut2=mcut2.contiguous(), use_kernel=k_msearch)
+        mcut2=mcut2.contiguous())
     valid_f = (ms["valid"] & ext_valid[:, None]).reshape(NC).contiguous()
     wg1 = ms["uq"].reshape(NC, -1).contiguous()
     wg2 = ms["uq2"].reshape(NC, -1).contiguous()
@@ -701,12 +538,7 @@ def trial2_records(st, pt, cfg, profile: int, u8_mask: bool, quant_limit,
             texels.contiguous(), st["data_mean"].contiguous(),
             ep0m[:, 0].contiguous(), ep1m[:, 0].contiguous(), C, R, u8_mask,
             config_cw(cfg), profile)
-    kw = {"cw_scale": cws, "rgbm": rgbm_scale(cfg)}
-    if profile >= HDR_RGB_LDR_A:
-        rf = _hdr_rounds_2plane(*args, use_kernels, k_refine, **kw)
-    else:
-        rf = refine_ops.trial2_refine(*args, **kw, use_kernel=k_refine,
-                                      gathers=use_kernels)
+    rf = refine_ops.trial2_refine(*args, cw_scale=cws, rgbm=rgbm_scale(cfg))
 
     K = R + 1
     fmt4 = torch.zeros((R, NC, 4), dtype=torch.int32, device=dev)

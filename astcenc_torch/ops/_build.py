@@ -1,4 +1,5 @@
-"""Build and load the CUDA kernels of ``astcenc_torch/csrc``.
+"""Build and load the CUDA kernels of ``astcenc_torch/csrc``, and decide
+whether a call runs a kernel or its plain version.
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled with nvcc for sm_90a into ``build/lib<name>-<key>.so`` at the
@@ -6,10 +7,23 @@ repository root and loaded with ctypes. ``key`` hashes the sources (the
 ``.cu`` file and every ``.cuh``) and the nvcc flags, so a library is reused
 only if it was built from exactly these sources with these flags.
 Nothing here runs at import time.
+
+The kernel switch lives here and nowhere else: every router of ``ops/``
+asks ``use_kernel(family, tensor)``, and no other module reads
+``ASTC_DISABLE_KERNELS`` or takes a flag that picks a kernel or its plain
+version. The answer is False for CPU tensors (any device but the CPU and
+CUDA raises), False inside ``plain()``, and otherwise True, except that
+``ASTC_DISABLE_KERNELS="msearch,refine"`` switches those two families off,
+as in the JAX package (``gather_pallas._kernel_enabled``, read by its
+``codec/trial.py``), which honours exactly these two; other names are
+ignored. ``kernel_scope()`` reads the variable once for a whole encode
+(``compress.compress_image``); outside one it is read at each call.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -145,3 +159,70 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(_lib_path(name))
             _libs[name] = lib
         return lib
+
+
+# --- the kernel switch -------------------------------------------------------
+
+#: The families a router asks about: K1 msearch; K2, K3 and K5-K7 refine;
+#: K4 psearch; K8 row_gather; K9 color_pack; color_unpack (the decode).
+#: texel_sum asks nothing: the card's sums must add in the CPU's order.
+FAMILIES = ("msearch", "refine", "psearch", "row_gather", "color_pack",
+            "color_unpack")
+#: The families ``ASTC_DISABLE_KERNELS`` can switch off.
+SWITCHED = ("msearch", "refine")
+
+# The families switched off in this context: None outside any scope (read
+# the environment at each call).
+_off: contextvars.ContextVar = contextvars.ContextVar("astc_kernels_off",
+                                                      default=None)
+
+
+def disabled_kernels() -> frozenset:
+    """The names in ``ASTC_DISABLE_KERNELS`` now, parsed as the JAX package
+    parses them: comma-separated, whitespace stripped, empty names
+    dropped. Only those in ``SWITCHED`` switch a family off."""
+    dis = os.environ.get("ASTC_DISABLE_KERNELS", "")
+    return frozenset(s.strip() for s in dis.split(",") if s.strip())
+
+
+def _env_off() -> frozenset:
+    return disabled_kernels().intersection(SWITCHED)
+
+
+@contextlib.contextmanager
+def _scope(off: frozenset):
+    token = _off.set(off)
+    try:
+        yield
+    finally:
+        _off.reset(token)
+
+
+def plain():
+    """A scope in which every router runs its plain version on any
+    device: the reference the kernels are compared with on the card."""
+    return _scope(frozenset(FAMILIES))
+
+
+def kernel_scope():
+    """A scope that reads ``ASTC_DISABLE_KERNELS`` once, for the calls
+    inside it; inside ``plain()`` it stays all plain."""
+    off = _off.get()
+    return _scope(_env_off() if off is None else off)
+
+
+def kernel_on(family: str) -> bool:
+    """Whether ``family`` runs its kernel on CUDA tensors now."""
+    off = _off.get()
+    return family not in (_env_off() if off is None else off)
+
+
+def use_kernel(family: str, t) -> bool:
+    """Whether a call of ``family`` on tensor ``t`` runs the kernel: for
+    CUDA tensors as ``kernel_on`` says, never for CPU tensors; any other
+    device raises."""
+    if t.is_cuda:
+        return kernel_on(family)
+    if t.device.type != "cpu":
+        raise ValueError(f"unsupported device {t.device}")
+    return False

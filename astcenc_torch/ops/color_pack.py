@@ -437,17 +437,6 @@ def pack_cuda(profile: int, ep0, ep1, rgbs, rgbo, req_fmt, quant_level):
     return fmt, vals
 
 
-def use_pack_kernel(ep0, use_kernel: bool) -> bool:
-    """Whether a pack call goes to the kernel: for CUDA tensors unless
-    ``use_kernel`` is False; the plain version for CPU tensors; any other
-    device raises."""
-    if ep0.is_cuda:
-        return use_kernel
-    if ep0.device.type != "cpu":
-        raise ValueError(f"unsupported device {ep0.device}")
-    return False
-
-
 def pack_args(*ts):
     """The pack's tensors as the kernel takes them: float32 endpoints and
     int32 requests, contiguous (no copy where they already are)."""
@@ -456,12 +445,11 @@ def pack_args(*ts):
         for t in ts]
 
 
-def pack_color_endpoints_ldr(ep0, ep1, rgbs, req_fmt, quant_level,
-                             use_kernel: bool = True):
-    """Batched LDR pack_color_endpoints: the colour pack kernel for CUDA
-    tensors (one launch), the plain version for CPU tensors or with
-    ``use_kernel=False``. Arguments and outputs as the plain version's."""
-    if use_pack_kernel(ep0, use_kernel):
+def pack_color_endpoints_ldr(ep0, ep1, rgbs, req_fmt, quant_level):
+    """Batched LDR pack_color_endpoints: the colour pack kernel (one
+    launch) or the plain version, as ``_build.use_kernel`` says. Arguments
+    and outputs as the plain version's."""
+    if _build.use_kernel("color_pack", ep0):
         return pack_cuda(cuq.PRF_LDR, *pack_args(ep0, ep1, rgbs, None,
                                                   req_fmt, quant_level))
     return pack_color_endpoints_ldr_plain(ep0, ep1, rgbs, req_fmt,

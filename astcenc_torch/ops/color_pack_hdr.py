@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..tables import ise
+from . import _build
 from . import color_pack as cp
 from . import color_unquant as cuq
 from . import softfloat as sf
@@ -416,12 +417,12 @@ def pack_color_endpoints_plain(profile: int, ep0, ep1, rgbs, rgbo, req_fmt,
 
 
 def pack_color_endpoints(profile: int, ep0, ep1, rgbs, rgbo, req_fmt,
-                         quant_level, use_kernel: bool = True):
+                         quant_level):
     """Profile-aware pack_color_endpoints: ep0, ep1, rgbs, rgbo (B, 4)
     float32, req_fmt and quant_level (B,) int32 -> (fmt (B,), values
-    (B, 8)) int32. One launch of the colour pack kernel for CUDA tensors,
-    the plain version for CPU tensors or with ``use_kernel=False``."""
-    if cp.use_pack_kernel(ep0, use_kernel):
+    (B, 8)) int32. One launch of the colour pack kernel or the plain
+    version, as ``_build.use_kernel`` says."""
+    if _build.use_kernel("color_pack", ep0):
         return cp.pack_cuda(profile, *cp.pack_args(ep0, ep1, rgbs, rgbo,
                                                    req_fmt, quant_level))
     return pack_color_endpoints_plain(profile, ep0, ep1, rgbs, rgbo, req_fmt,

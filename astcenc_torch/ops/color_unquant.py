@@ -404,15 +404,13 @@ def unpack_cuda(profile: int, fmt, values):
 
 
 def unpack_color_endpoints(profile: int, fmt: torch.Tensor,
-                           values: torch.Tensor, use_kernel: bool = True):
-    """Unpack a batch of colour endpoints: the colour decode kernel for
-    CUDA tensors (one launch), the plain version for CPU tensors or with
-    ``use_kernel=False``; any other device raises. Arguments and outputs
-    as ``unpack_color_endpoints_plain``'s, with any leading dimensions;
-    the kernel takes and returns int32."""
-    if fmt.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {fmt.device}")
-    if not (fmt.is_cuda and use_kernel):
+                           values: torch.Tensor):
+    """Unpack a batch of colour endpoints: the colour decode kernel (one
+    launch) or the plain version, as ``_build.use_kernel`` says; any other
+    device than the CPU and CUDA raises. Arguments and outputs as
+    ``unpack_color_endpoints_plain``'s, with any leading dimensions; the
+    kernel takes and returns int32."""
+    if not _build.use_kernel("color_unpack", fmt):
         return unpack_color_endpoints_plain(profile, fmt, values)
     lead = fmt.shape
     if tuple(values.shape) != (*lead, 8):

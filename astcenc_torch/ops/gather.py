@@ -1,5 +1,5 @@
-"""Table gathers: the colour quant tables and their lookup, kernel K8 (per-row
-table gather) with its plain version, and the kernel switch.
+"""Table gathers: the colour quant tables and their lookup, and kernel K8
+(per-row table gather) with its plain version.
 
 ``quant_lookup_plain`` is the lookup of the TPU kernel
 ``astcenc_tpu/ops/gather_pallas.py::_master_kernel`` (:170, launched by
@@ -25,18 +25,12 @@ bytes, though at the realign's sizes a call costs many times its bytes.
 The wrapper therefore does as little as it can on the host: the kernel
 takes int32 or int64 indices and clamps them itself, the checks read
 attributes only, and the output is allocated in its final shape.
-
-``kernel_enabled`` is the counterpart of ``gather_pallas._kernel_enabled``
-(:49): ``ASTC_DISABLE_KERNELS="msearch,refine"`` switches those kernel
-families off, as in the JAX package, which honours exactly these two
-(``codec/trial.py`` reads them); other names are ignored.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import os
 
 import numpy as np
 import torch
@@ -44,19 +38,6 @@ import torch
 from .. import obs
 from ..tables import ise, quant
 from . import _build
-
-
-def disabled_kernels() -> frozenset:
-    """The kernel families ``ASTC_DISABLE_KERNELS`` switches off now: its
-    comma-separated names, whitespace stripped, empty names dropped."""
-    dis = os.environ.get("ASTC_DISABLE_KERNELS", "")
-    return frozenset(s.strip() for s in dis.split(",") if s.strip())
-
-
-def kernel_enabled(name: str) -> bool:
-    """Whether ``ASTC_DISABLE_KERNELS`` leaves the family ``name`` on
-    (``gather_pallas._kernel_enabled``)."""
-    return name not in disabled_kernels()
 
 
 @functools.cache
@@ -192,14 +173,12 @@ def row_lookup_cuda(rows, idx):
     return out
 
 
-def row_lookup(rows, idx, use_kernel: bool = True):
+def row_lookup(rows, idx):
     """out[..., k(, c)] = rows[..., clip(idx[..., k], 0, V - 1)(, c)]
     (``gather_pallas.row_lookup``): rows (..., V) or (..., V, C), int32 or
     float32 (moved bit for bit); idx (..., K); the output has the rows'
-    dtype. Kernel K8 for CUDA tensors, the plain version for CPU tensors
-    (or anywhere with ``use_kernel=False``)."""
-    if rows.is_cuda and use_kernel:
+    dtype. Kernel K8 or the plain version, as ``_build.use_kernel``
+    says."""
+    if _build.use_kernel("row_gather", rows):
         return row_lookup_cuda(rows, idx)
-    if not rows.is_cuda and rows.device.type != "cpu":
-        raise ValueError(f"unsupported device {rows.device}")
     return row_lookup_plain(rows, idx)

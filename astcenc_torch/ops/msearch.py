@@ -267,13 +267,11 @@ def mode_search_cuda(pt, wei, wes, mcut, maxwq, comb_err, comb_fmt, C: int,
 
 
 def mode_search(pt, wei, wes, mcut, maxwq, comb_err, comb_fmt, C: int,
-                wei2=None, wes2=None, mcut2=None, use_kernel: bool = True):
-    """Mode search: kernel K1 for CUDA tensors, the plain version for CPU
-    tensors. ``use_kernel=False`` runs the plain version on any device."""
+                wei2=None, wes2=None, mcut2=None):
+    """Mode search: kernel K1 or the plain version, as
+    ``_build.use_kernel`` says."""
     args = (pt, wei, wes, mcut, maxwq, comb_err, comb_fmt, C, wei2, wes2,
             mcut2)
-    if wei.is_cuda and use_kernel:
+    if _build.use_kernel("msearch", wei):
         return mode_search_cuda(*args)
-    if not wei.is_cuda and wei.device.type != "cpu":
-        raise ValueError(f"unsupported device {wei.device}")
     return mode_search_plain(*args)

@@ -160,15 +160,13 @@ def line_errors_cuda(texels, uses_alpha, top, pot_table, count_table,
 
 
 def line_errors(texels, uses_alpha, top, pot_table, count_table, P: int,
-                wie: float, cw: tuple, cw_scale=None, use_kernel: bool = True):
-    """Line errors: kernel K4 for CUDA tensors, the plain version for CPU
-    tensors. ``use_kernel=False`` runs the plain version anywhere."""
+                wie: float, cw: tuple, cw_scale=None):
+    """Line errors: kernel K4 or the plain version, as
+    ``_build.use_kernel`` says."""
     args = (texels, uses_alpha, top, pot_table, count_table, P, wie, cw,
             cw_scale)
     if obs.on:
         obs.count(f"psearch.partitionings.pc{P}", top.shape[0] * top.shape[1])
-    if texels.is_cuda and use_kernel:
+    if _build.use_kernel("psearch", texels):
         return line_errors_cuda(*args)
-    if not texels.is_cuda and texels.device.type != "cpu":
-        raise ValueError(f"unsupported device {texels.device}")
     return line_errors_plain(*args)

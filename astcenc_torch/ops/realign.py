@@ -15,8 +15,7 @@ from . import gather
 
 def realign_decimated_grouped(wgrid, texels, ep0_t, ep1_t, channel_weight,
                               pn_rows, dec_f32, incidence, wvalid, color_of,
-                              ncolors: int, plane_mask=None,
-                              use_kernel: bool = False):
+                              ncolors: int, plane_mask=None):
     """Realign a decimated weight grid, one plane.
 
     Args:
@@ -28,8 +27,9 @@ def realign_decimated_grouped(wgrid, texels, ep0_t, ep1_t, channel_weight,
       wvalid: (N, W) bool; color_of: (N, W) parity class per slot.
       plane_mask: (N, 4) bool channels this plane does not carry (their
         endpoint offset is taken as zero), or None.
-      use_kernel: look the prev/next rows up through kernel K8 for CUDA
-        tensors (``gather.row_lookup``), as the JAX package does on the TPU.
+
+    The prev/next rows are looked up through ``gather.row_lookup`` (kernel
+    K8 on the card), as the JAX package does on the TPU.
 
     Returns (new_wgrid (N, W) int32, adjusted (N,) bool).
     """
@@ -68,7 +68,7 @@ def realign_decimated_grouped(wgrid, texels, ep0_t, ep1_t, channel_weight,
     # is consumed before its own single update, so the initial lookup holds
     # for every class step.
     SC = texel_sum(dec_f32 * dec_f32, C_t)
-    pnq = gather.row_lookup(pn_rows, wgrid.clamp(0, 64), use_kernel=use_kernel)
+    pnq = gather.row_lookup(pn_rows, wgrid.clamp(0, 64))
     down = pnq[..., 0]
     up = pnq[..., 1]
     for k in range(ncolors):

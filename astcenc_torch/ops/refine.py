@@ -9,8 +9,9 @@ launched by ``_refine2_call`` (:1275/:1289) from ``refine_round_2plane``.
 K6 keeps K3's layout (``csrc/refine_round2.cu``: a texel row per CTA,
 the two planes realigned at once on half-warps); K5 runs one candidate
 per half-warp (``csrc/refine_round.cu``). Both share K2's and K3's trial
-error and realign step (``csrc/refine_common.cuh``); the refit and the
-HDR pack run between the rounds in PyTorch (``codec/trial.py``).
+error and realign step (``csrc/refine_common.cuh``); the refit, the
+pack and the decode run between the rounds in PyTorch
+(``_rounds_1plane``, ``_rounds_2plane``).
 
 K2 replaces the TPU kernel
 ``astcenc_tpu/ops/refine_pallas.py::_trial1_full_kernel`` (:348, launched
@@ -51,15 +52,18 @@ static form) and K2, K3, K5 and K6 one with the RGBM trial metric
 (``rgbm``, the M scale; ``refine_pallas.py::_err_from_colors``). K7 reads
 no weight: its one form serves both.
 
-The plain versions are the XLA refine loops of ``trial.py:660-721``
-(1 plane) and ``:1227-1288`` (2 planes), built on ``recompute``,
-``color_pack`` and ``realign``. They are also the encoder's path when the
-``refine`` family is switched off (``gather.kernel_enabled``): there the
-routers' ``gathers=True`` sends the realign's prev/next lookups to kernel
-K8 and each colour pack to the colour pack kernel K9, as the JAX package's
-XLA branches run their gathers on the TPU. With the
-default (``use_kernel=False`` of a plain version) they are plain
-throughout.
+One rounds driver per plane count (``_rounds_1plane``, ``_rounds_2plane``)
+serves every path that is not K2 or K3: each round refits in PyTorch,
+packs, decodes and then runs one round, K5/K6/K7 or its plain version.
+With the plain round it is the plain version of K2 and K3
+(``trial1_refine_plain``, ``trial2_refine_plain``), the XLA refine loops
+of ``trial.py:660-721`` (1 plane) and ``:1227-1288`` (2 planes); with the
+round router it is the HDR path and the path of the ``refine`` family
+switched off (``_build.use_kernel``). On the card the plain rounds still
+look their realign rows up through K8, pack through the colour pack kernel
+K9 and decode through the colour decode kernel, as the JAX package's XLA
+branches run their gathers on the TPU; inside ``_build.plain()`` they are
+plain throughout.
 """
 
 from __future__ import annotations
@@ -70,7 +74,7 @@ import torch
 
 from .. import obs
 from . import _build
-from . import color_pack as cpack
+from . import color_pack_hdr as cph
 from . import color_unquant as cuq
 from . import ideal as ideal_ops
 from . import realign as realign_ops
@@ -165,15 +169,6 @@ def _lane_tables(pt, dm, wq):
             pt.dm_color[dml], pt.weight_prev_next[wq.to(torch.int64)])
 
 
-def _decode(profile, fmt, vals):
-    """(B, P) formats and (B, P, 8) values -> float (B, P, 4) endpoints."""
-    B, P = fmt.shape
-    e0, e1, _, _ = cuq.unpack_color_endpoints(profile, fmt.reshape(B * P),
-                                              vals.reshape(B * P, 8))
-    return (e0.to(torch.float32).reshape(B, P, 4),
-            e1.to(torch.float32).reshape(B, P, 4))
-
-
 def pack_partitions(pack, cq, cqm, pc: int):
     """The pack of a pc-partition lane (JAX trial.py:556-594): ``pack(q)``
     packs every partition at colour quant q into (NC, pc) formats and
@@ -200,11 +195,129 @@ def pack_partitions(pack, cq, cqm, pc: int):
     return fmt4, vals4, use_q.to(torch.int32), matched
 
 
+def _rounds_1plane(rnd, pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
+                   pot, ep0, ep1, C: int, R: int, u8_mask: bool, cw: tuple,
+                   profile: int, cw_scale=None, rgbm: float = 0.0):
+    """The R rounds of a 1-plane trial (JAX trial.py:624-721): one
+    bootstrap round (no realign) for the first infill, then per round the
+    least-squares refit (with the RGBO vector under the HDR profiles), the
+    pack of every partition (``pack_partitions``), the decode and one
+    round ``rnd`` (``refine_round_1plane`` or its plain version), whose
+    infill the next refit reads. Arguments and outputs as
+    ``trial1_refine_plain``'s."""
+    NC = wgrid0.shape[0]
+    pc = fmt_req.shape[1]
+    tex = texels.repeat_interleave(C, 0)
+    pmask = ideal_ops.partition_onehot(pot)[..., :pc].repeat_interleave(C, 0)
+    counts = pmask.sum(1)
+    e0 = ep0.repeat_interleave(C, 0)
+    e1 = ep1.repeat_interleave(C, 0)
+    cw_l = lane_cw(cw, cw_scale, C)
+    is_hdr = profile >= cuq.PRF_HDR_RGB_LDR_A
+
+    def step(grid, alive, d0, d1, ncolors):
+        return rnd(pt, grid, dm, wq, alive, d0, d1, texels, pot, C, ncolors,
+                   u8_mask, cw, cw_scale=cw_scale, rgbm=rgbm)
+
+    def lanes(x):
+        return None if x is None else x.reshape(NC * pc, 4)
+
+    zero = torch.zeros((NC, 4, 4), dtype=torch.int32, device=texels.device)
+    undec = step(wgrid0, alive, zero, zero, 0)["undec"]
+    wgrid = wgrid0
+    out = {k: [] for k in ("fmt", "vals", "useq", "match", "wpost",
+                           "err_post")}
+    for r in range(R):
+        rc = recompute_ops.recompute_ideal_colors_1plane(
+            tex, pmask, counts, undec, cw_l, e0, e1, is_hdr=is_hdr)
+        e0, e1 = rc["ep0"], rc["ep1"]
+
+        def pack(q):
+            f, v = cph.pack_color_endpoints(
+                profile, lanes(e0), lanes(e1), lanes(rc["rgbs"]),
+                lanes(rc.get("rgbo")), fmt_req.reshape(NC * pc),
+                q.repeat_interleave(pc))
+            return f.reshape(NC, pc), v.reshape(NC, pc, 8)
+
+        fmt4, vals4, use_q, matched = pack_partitions(pack, cq, cqm, pc)
+        d0, d1, _, _ = cuq.unpack_color_endpoints(profile, fmt4, vals4)
+        res = step(wgrid, alive, d0.contiguous(), d1.contiguous(),
+                   pt.ncolors)
+        if r == 0:
+            err_pre = torch.where(alive, res["err_pre"], _BIG)
+        wgrid = torch.where(alive[:, None], res["grid"], wgrid)
+        out["err_post"].append(torch.where(alive, res["err_post"], _BIG))
+        alive = alive & res["adjusted"]
+        undec = res["undec"]
+        for k, v in (("fmt", fmt4), ("vals", vals4), ("useq", use_q),
+                     ("match", matched), ("wpost", wgrid)):
+            out[k].append(v)
+    res = {k: torch.stack(v) for k, v in out.items()}
+    res["err_pre"] = err_pre
+    return res
+
+
+def _rounds_2plane(rnd, pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
+                   texels, data_mean, ep0, ep1, C: int, R: int,
+                   u8_mask: bool, cw: tuple, profile: int, cw_scale=None,
+                   rgbm: float = 0.0):
+    """The R rounds of a 2-plane trial (JAX trial.py:1192-1288): one
+    bootstrap round for both first infills, then per round the 2-plane
+    refit (with the RGBO vector under the HDR profiles), the pack, the
+    decode and one round ``rnd`` (``refine_round_2plane`` or its plain
+    version). Arguments and outputs as ``trial2_refine_plain``'s."""
+    NC = wg1_0.shape[0]
+    N = ep0.shape[0]
+    dev = texels.device
+    rows = torch.arange(N, device=dev) % texels.shape[0]
+    tex = texels[rows].repeat_interleave(C, 0)
+    mean = data_mean[rows].repeat_interleave(C, 0)
+    p2c_f = p2c.repeat_interleave(C, 0)
+    e0 = ep0.repeat_interleave(C, 0)
+    e1 = ep1.repeat_interleave(C, 0)
+    cw_l = lane_cw(cw, cw_scale, C)
+    is_hdr = profile >= cuq.PRF_HDR_RGB_LDR_A
+
+    def step(g1, g2, alive, d0, d1, ncolors):
+        return rnd(pt, g1, g2, dm, wq, alive, p2c, d0, d1, texels, C,
+                   ncolors, u8_mask, cw, cw_scale=cw_scale, rgbm=rgbm)
+
+    zero = torch.zeros((NC, 4), dtype=torch.int32, device=dev)
+    boot = step(wg1_0, wg2_0, alive, zero, zero, 0)
+    u1, u2 = boot["undec1"], boot["undec2"]
+    wg1, wg2 = wg1_0, wg2_0
+    out = {k: [] for k in ("fmt", "vals", "w1post", "w2post", "err_post")}
+    for r in range(R):
+        rc = recompute_ops.recompute_ideal_colors_2planes(
+            tex, u1, u2, p2c_f, cw_l, mean, e0, e1, is_hdr=is_hdr)
+        e0, e1 = rc["ep0"], rc["ep1"]
+        fmt, vals = cph.pack_color_endpoints(
+            profile, e0, e1, rc["rgbs"], rc.get("rgbo"), fmt_req, cq)
+        d0, d1, _, _ = cuq.unpack_color_endpoints(profile, fmt, vals)
+        res = step(wg1, wg2, alive, d0.contiguous(), d1.contiguous(),
+                   pt.ncolors)
+        if r == 0:
+            err_pre = torch.where(alive, res["err_pre"], _BIG)
+        a = alive[:, None]
+        wg1 = torch.where(a, res["grid1"], wg1)
+        wg2 = torch.where(a, res["grid2"], wg2)
+        out["err_post"].append(torch.where(alive, res["err_post"], _BIG))
+        alive = alive & res["adjusted"]
+        u1, u2 = res["undec1"], res["undec2"]
+        for k, v in (("fmt", fmt), ("vals", vals), ("w1post", wg1),
+                     ("w2post", wg2)):
+            out[k].append(v)
+    res = {k: torch.stack(v) for k, v in out.items()}
+    res["err_pre"] = err_pre
+    return res
+
+
 def trial1_refine_plain(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
                         pot, ep0, ep1, C: int, R: int, u8_mask: bool,
                         cw: tuple, profile: int, cw_scale=None,
-                        rgbm: float = 0.0, use_kernel: bool = False):
-    """R refinement rounds for N*C lanes of a 1-plane trial, pc = 1..4.
+                        rgbm: float = 0.0):
+    """R refinement rounds for N*C lanes of a 1-plane trial, pc = 1..4:
+    the rounds driver with the plain round, K2's plain version.
 
     Args:
       pt: pass tables (``codec.trial.pass_tables``).
@@ -215,78 +328,22 @@ def trial1_refine_plain(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels,
       cw: the config's channel weights; cw_scale: (N,) float32 alpha scale
       of each block (USE_ALPHA_WEIGHT) or None; rgbm: the RGBM scale of
       the trial error, or 0.
-      use_kernel: realign lookups on K8 and packs on K9 for CUDA tensors.
 
     Returns dict fmt (R, NC, 4), vals (R, NC, 4, 8), useq (R, NC), match
     (R, NC) bool, wpost (R, NC, W) int32; err_pre (NC,) and err_post
     (R, NC) float32, alive-masked to 1e30.
     """
-    dev = texels.device
-    NC, W = wgrid0.shape
-    pc = fmt_req.shape[1]
-    tex = texels.repeat_interleave(C, 0)
-    pmask = ideal_ops.partition_onehot(pot)[..., :pc].repeat_interleave(C, 0)
-    counts = pmask.sum(1)
-    e0 = ep0.repeat_interleave(C, 0)
-    e1 = ep1.repeat_interleave(C, 0)
-    cw = lane_cw(cw, cw_scale, C)
-    Mint, Mf32, incid, wvalid, color_of, pn_rows = _lane_tables(pt, dm, wq)
-    wait = obs.on and obs.sync("refine.big_1plane", "h2d")
-    big = torch.tensor(_BIG, device=dev)
-    if wait:
-        obs.end(wait, big.nbytes)
-    i32 = torch.int32
-    wgrid = wgrid0
-    out = {k: [] for k in ("fmt", "vals", "useq", "match", "wpost",
-                           "err_post")}
-    err_pre = None
-
-    for r in range(R):
-        undec = torch.einsum("ntw,nw->nt", Mf32, wgrid.to(torch.float32)) \
-            / 64.0
-        rc = recompute_ops.recompute_ideal_colors_1plane(
-            tex, pmask, counts, undec, cw, e0, e1)
-        e0, e1 = rc["ep0"], rc["ep1"]
-
-        def pack(q):
-            f, v = cpack.pack_color_endpoints_ldr(
-                e0.reshape(NC * pc, 4), e1.reshape(NC * pc, 4),
-                rc["rgbs"].reshape(NC * pc, 4), fmt_req.reshape(NC * pc),
-                q.repeat_interleave(pc), use_kernel=use_kernel)
-            return f.reshape(NC, pc), v.reshape(NC, pc, 8)
-
-        fmt4, vals4, use_q, matched = pack_partitions(pack, cq, cqm, pc)
-        fmt_p, vals_p = fmt4[:, :pc], vals4[:, :pc]
-        e0i, e1i = _decode(profile, fmt_p, vals_p)
-        ep0_t = torch.einsum("ntp,npc->ntc", pmask, e0i)
-        ep1_t = torch.einsum("ntp,npc->ntc", pmask, e1i)
-        if r == 0:
-            err_pre = torch.where(alive, trial_error_1plane(
-                tex, wgrid, Mint, ep0_t, ep1_t, cw, u8_mask, rgbm), big)
-        new_w, adjusted = realign_ops.realign_decimated_grouped(
-            wgrid, tex, ep0_t, ep1_t, cw, pn_rows, Mf32, incid, wvalid,
-            color_of, pt.ncolors, use_kernel=use_kernel)
-        wgrid = torch.where(alive[:, None], new_w, wgrid)
-        post = trial_error_1plane(tex, wgrid, Mint, ep0_t, ep1_t, cw, u8_mask,
-                                  rgbm)
-        out["err_post"].append(torch.where(alive, post, big))
-        alive = alive & adjusted
-        out["fmt"].append(fmt4)
-        out["vals"].append(vals4)
-        out["useq"].append(use_q.to(i32))
-        out["match"].append(matched)
-        out["wpost"].append(wgrid)
-    res = {k: torch.stack(v) for k, v in out.items()}
-    res["err_pre"] = err_pre
-    return res
+    return _rounds_1plane(refine_round_1plane_plain, pt, wgrid0, dm, wq,
+                          alive, cq, cqm, fmt_req, texels, pot, ep0, ep1, C,
+                          R, u8_mask, cw, profile, cw_scale, rgbm)
 
 
 def trial2_refine_plain(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
                         texels, data_mean, ep0, ep1, C: int, R: int,
                         u8_mask: bool, cw: tuple, profile: int,
-                        cw_scale=None, rgbm: float = 0.0,
-                        use_kernel: bool = False):
-    """R refinement rounds for N*C lanes of a 2-plane, 1-partition trial.
+                        cw_scale=None, rgbm: float = 0.0):
+    """R refinement rounds for N*C lanes of a 2-plane, 1-partition trial:
+    the rounds driver with the plain round, K3's plain version.
 
     Args:
       wg1_0/wg2_0: (NC, W) int32 starting grids of both planes;
@@ -295,65 +352,15 @@ def trial2_refine_plain(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
       block b reads texel row b % N0 (the four plane-2 components of a
       block are four blocks); ep0/ep1: (N, 4) ideal endpoints; lane i
       belongs to block i // C; cw_scale: (N,) alpha scale of each block or
-      None, and rgbm, as for ``trial1_refine_plain``; use_kernel: realign
-      lookups on K8 and packs on K9 for CUDA tensors.
+      None, and rgbm, as for ``trial1_refine_plain``.
 
     Returns dict fmt (R, NC), vals (R, NC, 8), w1post/w2post (R, NC, W)
     int32; err_pre (NC,) and err_post (R, NC) float32, alive-masked.
     """
-    dev = texels.device
-    NC, W = wg1_0.shape
-    N = ep0.shape[0]
-    rows = torch.arange(N, device=dev) % texels.shape[0]
-    tex = texels[rows].repeat_interleave(C, 0)
-    mean = data_mean[rows].repeat_interleave(C, 0)
-    p2c_f = p2c.repeat_interleave(C, 0)
-    p2lanes = torch.arange(4, device=dev)[None, :] == p2c_f[:, None]
-    e0 = ep0.repeat_interleave(C, 0)
-    e1 = ep1.repeat_interleave(C, 0)
-    cw = lane_cw(cw, cw_scale, C)
-    Mint, Mf32, incid, wvalid, color_of, pn_rows = _lane_tables(pt, dm, wq)
-    wait = obs.on and obs.sync("refine.big_2plane", "h2d")
-    big = torch.tensor(_BIG, device=dev)
-    if wait:
-        obs.end(wait, big.nbytes)
-    wg1, wg2 = wg1_0, wg2_0
-    out = {k: [] for k in ("fmt", "vals", "w1post", "w2post", "err_post")}
-    err_pre = None
-    for r in range(R):
-        u1 = torch.einsum("ntw,nw->nt", Mf32, wg1.to(torch.float32)) / 64.0
-        u2 = torch.einsum("ntw,nw->nt", Mf32, wg2.to(torch.float32)) / 64.0
-        rc = recompute_ops.recompute_ideal_colors_2planes(
-            tex, u1, u2, p2c_f, cw, mean, e0, e1)
-        e0, e1 = rc["ep0"], rc["ep1"]
-        fmt, v = cpack.pack_color_endpoints_ldr(e0, e1, rc["rgbs"], fmt_req,
-                                                cq, use_kernel=use_kernel)
-        e0i, e1i = _decode(profile, fmt[:, None], v[:, None])
-        e0i, e1i = e0i[:, 0], e1i[:, 0]
-        if r == 0:
-            err_pre = torch.where(alive, trial_error_2plane(
-                tex, wg1, wg2, p2c_f, Mint, e0i, e1i, cw, u8_mask, rgbm), big)
-        ep0_t = e0i[:, None, :].expand_as(tex)
-        ep1_t = e1i[:, None, :].expand_as(tex)
-        nw1, adj1 = realign_ops.realign_decimated_grouped(
-            wg1, tex, ep0_t, ep1_t, cw, pn_rows, Mf32, incid, wvalid,
-            color_of, pt.ncolors, plane_mask=p2lanes, use_kernel=use_kernel)
-        nw2, adj2 = realign_ops.realign_decimated_grouped(
-            wg2, tex, ep0_t, ep1_t, cw, pn_rows, Mf32, incid, wvalid,
-            color_of, pt.ncolors, plane_mask=~p2lanes, use_kernel=use_kernel)
-        wg1 = torch.where(alive[:, None], nw1, wg1)
-        wg2 = torch.where(alive[:, None], nw2, wg2)
-        post = trial_error_2plane(tex, wg1, wg2, p2c_f, Mint, e0i, e1i, cw,
-                                  u8_mask, rgbm)
-        out["err_post"].append(torch.where(alive, post, big))
-        alive = alive & (adj1 | adj2)
-        out["fmt"].append(fmt)
-        out["vals"].append(v)
-        out["w1post"].append(wg1)
-        out["w2post"].append(wg2)
-    res = {k: torch.stack(v) for k, v in out.items()}
-    res["err_pre"] = err_pre
-    return res
+    return _rounds_2plane(refine_round_2plane_plain, pt, wg1_0, wg2_0, dm,
+                          wq, alive, cq, fmt_req, p2c, texels, data_mean,
+                          ep0, ep1, C, R, u8_mask, cw, profile, cw_scale,
+                          rgbm)
 
 
 def _lib(name):
@@ -374,7 +381,8 @@ def _lib(name):
 
 def _check_common(pt, W, T, R, profile, dev):
     if profile not in (cuq.PRF_LDR, cuq.PRF_LDR_SRGB):
-        raise NotImplementedError("HDR profiles are not ported yet")
+        raise ValueError(f"profile {profile}: K2 and K3 take the LDR "
+                         "profiles only; HDR rounds run through K5-K7")
     if not 1 <= R <= 8:
         raise ValueError(f"refinement count {R} outside 1..8")
     k = pt.k
@@ -509,8 +517,7 @@ def trial2_refine_cuda(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c,
 
 def refine_round_1plane_plain(pt, wgrid, dm, wq, alive, ep0, ep1, texels,
                               pot, C: int, ncolors: int, u8_mask: bool,
-                              cw: tuple, cw_scale=None, rgbm: float = 0.0,
-                              use_kernel: bool = False):
+                              cw: tuple, cw_scale=None, rgbm: float = 0.0):
     """One 1-plane round (JAX trial.py:675-713 without the refit and
     pack) for NC lanes; lane i belongs to block i // C.
 
@@ -520,8 +527,7 @@ def refine_round_1plane_plain(pt, wgrid, dm, wq, alive, ep0, ep1, texels,
       channel; texels: (N, T, 4) float32; pot: (N, T) int32 partition of
       each texel; ncolors: parity classes to realign (0: bootstrap);
       cw_scale: (N,) alpha scale of each block or None, and rgbm, as for
-      ``trial1_refine_plain``; use_kernel: the realign's lookups through
-      K8 for CUDA tensors.
+      ``trial1_refine_plain``.
 
     Returns dict grid (NC, W) int32 (realigned where alive), adjusted
     (NC,) bool, undec (NC, T) float32 infill of grid, err_pre and
@@ -542,7 +548,7 @@ def refine_round_1plane_plain(pt, wgrid, dm, wq, alive, ep0, ep1, texels,
     if ncolors:
         new_w, adj = realign_ops.realign_decimated_grouped(
             wgrid, tex, ep0_t, ep1_t, cw, pn_rows, Mf32, incid, wvalid,
-            color_of, ncolors, use_kernel=use_kernel)
+            color_of, ncolors)
         grid = torch.where(alive[:, None], new_w, wgrid)
         adjusted = adj & alive
         err_post = trial_error_1plane(tex, grid, Mint, ep0_t, ep1_t, cw,
@@ -555,8 +561,7 @@ def refine_round_1plane_plain(pt, wgrid, dm, wq, alive, ep0, ep1, texels,
 
 def refine_round_2plane_plain(pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1,
                               texels, C: int, ncolors: int, u8_mask: bool,
-                              cw: tuple, cw_scale=None, rgbm: float = 0.0,
-                              use_kernel: bool = False):
+                              cw: tuple, cw_scale=None, rgbm: float = 0.0):
     """One 2-plane, 1-partition round (JAX trial.py:1237-1282 without the
     refit and pack), or with ncolors == 0 the bootstrap infills alone.
 
@@ -566,8 +571,7 @@ def refine_round_2plane_plain(pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1,
       ep0/ep1: (NC, 4) int32 decoded endpoints; texels: (N0, T, 4), block
       b reading row b % N0; lane i belongs to block i // C; cw_scale:
       (N,) alpha scale of each block or None, and rgbm, as for
-      ``trial1_refine_plain``; use_kernel: the realign's lookups through
-      K8 for CUDA tensors.
+      ``trial1_refine_plain``.
 
     Returns dict grid1/grid2 (NC, W), adjusted (NC,) bool, undec1/undec2
     (NC, T) and err_pre/err_post (NC,); the bootstrap returns undec1 and
@@ -593,10 +597,10 @@ def refine_round_2plane_plain(pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1,
     ep1_t = e1[:, None, :].expand_as(tex)
     nw1, adj1 = realign_ops.realign_decimated_grouped(
         wg1, tex, ep0_t, ep1_t, cw, pn_rows, Mf32, incid, wvalid, color_of,
-        ncolors, plane_mask=p2lanes, use_kernel=use_kernel)
+        ncolors, plane_mask=p2lanes)
     nw2, adj2 = realign_ops.realign_decimated_grouped(
         wg2, tex, ep0_t, ep1_t, cw, pn_rows, Mf32, incid, wvalid, color_of,
-        ncolors, plane_mask=~p2lanes, use_kernel=use_kernel)
+        ncolors, plane_mask=~p2lanes)
     a = alive[:, None]
     nw1 = torch.where(a, nw1, wg1)
     nw2 = torch.where(a, nw2, wg2)
@@ -743,65 +747,57 @@ def refine_round_2plane_cuda(pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1,
             "err_post": err[1]}
 
 
-def _route(texels, use_kernel, cuda_fn, plain_fn, args, gathers, cw_scale,
-           rgbm):
-    kw = {"cw_scale": cw_scale, "rgbm": float(rgbm)}
-    if texels.is_cuda and use_kernel:
-        return cuda_fn(*args, **kw)
-    if not texels.is_cuda and texels.device.type != "cpu":
-        raise ValueError(f"unsupported device {texels.device}")
-    return plain_fn(*args, **kw, use_kernel=gathers)
-
-
 def trial1_refine(pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels, pot,
                   ep0, ep1, C: int, R: int, u8_mask: bool, cw: tuple,
-                  profile: int, cw_scale=None, rgbm: float = 0.0,
-                  use_kernel: bool = True, gathers: bool = False):
-    """1-plane refinement rounds: kernel K2 for CUDA tensors, the plain
-    version for CPU tensors. ``use_kernel=False`` runs the plain version
-    anywhere; ``gathers`` sends the plain version's lookups to K8 and its
-    packs to K9 for CUDA tensors (the refine-off path). ``cw_scale`` (N,)
-    selects the per-block weights' form, ``rgbm`` > 0 the RGBM metric."""
-    return _route(texels, use_kernel, trial1_refine_cuda, trial1_refine_plain,
-                  (pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels, pot,
-                   ep0, ep1, C, R, u8_mask, cw, profile), gathers, cw_scale,
-                  rgbm)
+                  profile: int, cw_scale=None, rgbm: float = 0.0):
+    """1-plane refinement rounds: kernel K2 for the LDR profiles where
+    ``_build.use_kernel`` allows it; otherwise, and for every HDR profile,
+    the rounds driver with ``refine_round_1plane`` (K5 or the plain round)
+    as its round. ``cw_scale`` (N,) selects the per-block weights' form,
+    ``rgbm`` > 0 the RGBM metric."""
+    args = (pt, wgrid0, dm, wq, alive, cq, cqm, fmt_req, texels, pot, ep0,
+            ep1, C, R, u8_mask, cw, profile)
+    kw = {"cw_scale": cw_scale, "rgbm": float(rgbm)}
+    if (_build.use_kernel("refine", texels)
+            and profile < cuq.PRF_HDR_RGB_LDR_A):
+        return trial1_refine_cuda(*args, **kw)
+    return _rounds_1plane(refine_round_1plane, *args, **kw)
 
 
 def trial2_refine(pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c, texels,
                   data_mean, ep0, ep1, C: int, R: int, u8_mask: bool,
-                  cw: tuple, profile: int, cw_scale=None, rgbm: float = 0.0,
-                  use_kernel: bool = True, gathers: bool = False):
-    """2-plane refinement rounds: kernel K3 for CUDA tensors, the plain
-    version for CPU tensors; the rest as for ``trial1_refine``."""
-    return _route(texels, use_kernel, trial2_refine_cuda, trial2_refine_plain,
-                  (pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c, texels,
-                   data_mean, ep0, ep1, C, R, u8_mask, cw, profile), gathers,
-                  cw_scale, rgbm)
+                  cw: tuple, profile: int, cw_scale=None, rgbm: float = 0.0):
+    """2-plane refinement rounds: kernel K3 for the LDR profiles where
+    ``_build.use_kernel`` allows it, otherwise the rounds driver with
+    ``refine_round_2plane``; the rest as for ``trial1_refine``."""
+    args = (pt, wg1_0, wg2_0, dm, wq, alive, cq, fmt_req, p2c, texels,
+            data_mean, ep0, ep1, C, R, u8_mask, cw, profile)
+    kw = {"cw_scale": cw_scale, "rgbm": float(rgbm)}
+    if (_build.use_kernel("refine", texels)
+            and profile < cuq.PRF_HDR_RGB_LDR_A):
+        return trial2_refine_cuda(*args, **kw)
+    return _rounds_2plane(refine_round_2plane, *args, **kw)
 
 
 def refine_round_1plane(pt, wgrid, dm, wq, alive, ep0, ep1, texels, pot,
                         C: int, ncolors: int, u8_mask: bool, cw: tuple,
-                        cw_scale=None, rgbm: float = 0.0,
-                        use_kernel: bool = True, gathers: bool = False):
-    """One 1-plane round: kernel K5 for CUDA tensors, the plain version for
-    CPU tensors; ``gathers`` sends the plain version's realign lookups to
-    K8 for CUDA tensors; ``cw_scale`` and ``rgbm`` as for
+                        cw_scale=None, rgbm: float = 0.0):
+    """One 1-plane round: kernel K5 or the plain version, as
+    ``_build.use_kernel`` says; ``cw_scale`` and ``rgbm`` as for
     ``trial1_refine``."""
-    return _route(texels, use_kernel, refine_round_1plane_cuda,
-                  refine_round_1plane_plain,
-                  (pt, wgrid, dm, wq, alive, ep0, ep1, texels, pot, C,
-                   ncolors, u8_mask, cw), gathers, cw_scale, rgbm)
+    fn = (refine_round_1plane_cuda if _build.use_kernel("refine", texels)
+          else refine_round_1plane_plain)
+    return fn(pt, wgrid, dm, wq, alive, ep0, ep1, texels, pot, C, ncolors,
+              u8_mask, cw, cw_scale=cw_scale, rgbm=float(rgbm))
 
 
 def refine_round_2plane(pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1, texels,
                         C: int, ncolors: int, u8_mask: bool, cw: tuple,
-                        cw_scale=None, rgbm: float = 0.0,
-                        use_kernel: bool = True, gathers: bool = False):
+                        cw_scale=None, rgbm: float = 0.0):
     """One 2-plane round: kernel K6 (K7 for the bootstrap, ncolors == 0)
-    for CUDA tensors, the plain version for CPU tensors; the rest as for
+    or the plain version, as ``_build.use_kernel`` says; the rest as for
     ``refine_round_1plane``."""
-    return _route(texels, use_kernel, refine_round_2plane_cuda,
-                  refine_round_2plane_plain,
-                  (pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1, texels, C,
-                   ncolors, u8_mask, cw), gathers, cw_scale, rgbm)
+    fn = (refine_round_2plane_cuda if _build.use_kernel("refine", texels)
+          else refine_round_2plane_plain)
+    return fn(pt, wg1, wg2, dm, wq, alive, p2c, ep0, ep1, texels, C,
+              ncolors, u8_mask, cw, cw_scale=cw_scale, rgbm=float(rgbm))

@@ -18,7 +18,7 @@ import torch
 
 from .. import api
 from ..codec import compress as compress_mod
-from ..ops import gather
+from ..ops import _build
 
 
 def make_mesh(devices=None) -> list:
@@ -66,14 +66,14 @@ def compress_blocks_sharded(ctx, texels, devices=None) -> np.ndarray:
     devs = make_mesh(devices)
     texels = np.ascontiguousarray(np.asarray(texels, np.float32))
     n = texels.shape[0]
-    disabled = gather.disabled_kernels()
     outs = []
-    for dev, part in zip(devs, _shards(texels, len(devs), texels[:1])):
-        dctx = _on(ctx, dev)
-        for lo in range(0, part.shape[0], compress_mod.CHUNK):
-            tex = torch.from_numpy(part[lo:lo + compress_mod.CHUNK]).to(dev)
-            outs.append(compress_mod.compress_blocks(
-                dctx, tex, disabled=disabled).cpu())
+    with _build.kernel_scope():
+        for dev, part in zip(devs, _shards(texels, len(devs), texels[:1])):
+            dctx = _on(ctx, dev)
+            for lo in range(0, part.shape[0], compress_mod.CHUNK):
+                tex = torch.from_numpy(
+                    part[lo:lo + compress_mod.CHUNK]).to(dev)
+                outs.append(compress_mod.compress_blocks(dctx, tex).cpu())
     return torch.cat(outs).numpy()[:n]
 
 

@@ -193,12 +193,13 @@ import time
 import numpy as np
 import torch
 
+from benchmark import roofline
+
 SIZE = 2048      # side of the main-path texture
 CAPTURE = 512    # side of the images whose kernel inputs are captured
 CROP = 256       # side of the crops compared with the plain versions
 HDR_SIZE = 2048  # side of the HDR path's texture
-HBM_BYTES_S = 3.35e12
-F32_OPS_S = 67e12
+PEAK = roofline.PEAKS["NVIDIA H100 80GB HBM3"]
 
 
 def _smi() -> str:
@@ -286,8 +287,7 @@ def _capture(modules):
     def keep(key, args, kw):
         if key not in seen:
             seen[key] = ([_clone(a) for a in args],
-                         {k: _clone(v) for k, v in kw.items()
-                          if k != "use_kernel"})
+                         {k: _clone(v) for k, v in kw.items()})
 
     def ms(pt, *args, **kw):
         if pt.kind != "always":
@@ -321,8 +321,8 @@ def _capture(modules):
 
 @contextlib.contextmanager
 def _disabled(families: str):
-    """ASTC_DISABLE_KERNELS=families inside the block (compress_image reads
-    it once per call)."""
+    """ASTC_DISABLE_KERNELS=families inside the block (the kernel switch,
+    ``_build.kernel_scope``, reads it once per compress_image call)."""
     old = os.environ.get("ASTC_DISABLE_KERNELS")
     os.environ["ASTC_DISABLE_KERNELS"] = families
     try:
@@ -334,43 +334,31 @@ def _disabled(families: str):
             os.environ["ASTC_DISABLE_KERNELS"] = old
 
 
+def _plainly(fn):
+    """``fn`` run with every router inside it on its plain version
+    (``_build.plain()``)."""
+    from astcenc_torch.ops import _build
+
+    def run(*a, **kw):
+        with _build.plain():
+            return fn(*a, **kw)
+    return run
+
+
 def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if torch.is_tensor(t))
 
 
 def _bound(nbytes: int, ops: float):
-    b_ms = nbytes / HBM_BYTES_S * 1e3
-    o_ms = ops / F32_OPS_S * 1e3
-    return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
+    """``roofline.bound_ms`` at the H100's published peaks, and which of
+    bytes and operations bounds it."""
+    by_bytes = nbytes * PEAK["f32_ops_s"] >= ops * PEAK["hbm_bytes_s"]
+    return (roofline.bound_ms(nbytes, ops, PEAK),
+            "bytes" if by_bytes else "operations")
 
 
 # --- operation models ----------------------------------------------------
-# K1, per block and plane: the decimated ideal weights (16 per texel tap of
-# each decimation); the angular sums and extents, 8 per weight and step,
-# over the steps the block's search takes (kSteps[min(maxprec, 7, maxwq)]
-# for each decimation with an angular level in use); per mode the weight
-# quantization (6 per weight) and the weight-set error (11 per texel); per
-# mode the format lookup and the top-C selection (8 + C).
-_K1_STEPS = (2, 3, 4, 5, 6, 8, 10, 12, 16, 20, 24, 32)
-
-
-def _ops_k1(pt, args, kw):
-    wei, maxwq = args[1], args[4]
-    N, T = wei.shape
-    k = pt.k
-    D, W = k.wt_n.shape
-    M = k.modes.shape[0]
-    C = args[7]
-    planes = 2 if kw.get("wei2") is not None else 1
-    mp = torch.minimum(k.maxprec.clamp(max=7)[None, :],
-                       maxwq[:, None].to(k.maxprec.dtype)).clamp(0, 11)
-    steps = torch.tensor(_K1_STEPS, device=mp.device)[mp.long()]
-    used = (k.levels_used != 0).to(steps.dtype) * k.wcount.to(steps.dtype)
-    angular = float((steps * used[None, :]).sum())
-    return (planes * (N * 16 * D * T + 8 * angular
-                      + N * M * (6 * W + 11 * T)) + N * M * (8 + C))
-
-
+# K1: ``roofline.ops_k1``.
 # K2/K3, per lane and round: the refit (34 per texel and plane), the pack
 # and decode (300 per partition), the trial error (40 per texel, twice in
 # round 0) and, on lanes still refining, the realign (144 per texel and
@@ -924,9 +912,11 @@ def _capture_forms(api, refine, psearch, ctx, img):
     call of each kernel form in an encode of img through the kernels."""
     seen = {}
     wrapped = [
-        (refine, "trial1_refine", lambda a: (
+        # The HDR profiles' trials go on to the rounds driver (K5-K7).
+        (refine, "trial1_refine", lambda a: None if a[16] >= 2 else (
             "K2", "always" if a[0].kind == "always" else f"pc{a[0].pc}")),
-        (refine, "trial2_refine", lambda a: ("K3", "two")),
+        (refine, "trial2_refine",
+         lambda a: None if a[17] >= 2 else ("K3", "two")),
         (refine, "refine_round_1plane", lambda a: (
             "K5", "boot" if a[10] == 0 else f"pc{a[0].pc}")),
         (refine, "refine_round_2plane", lambda a: (
@@ -937,7 +927,7 @@ def _capture_forms(api, refine, psearch, ctx, img):
     def wrap(name, key):
         def fn(*a, **kw):
             k = key(a)
-            if k not in seen:
+            if k is not None and k not in seen:
                 seen[k] = ([_clone(x) for x in a],
                            {n: _clone(v) for n, v in kw.items()
                             if n in ("cw_scale", "rgbm")})
@@ -978,6 +968,7 @@ def _form_phase(api, testdata, refine, psearch, dev, seed, at):
                   refine.refine_round_2plane_plain),
            "K7": (refine.refine_round_2plane_cuda,
                   refine.refine_round_2plane_plain)}
+    fns = {k: (c, _plainly(p)) for k, (c, p) in fns.items()}
     stats = {}
     rejected = 0
     for form, profile, flags, img in runs:
@@ -1156,7 +1147,7 @@ def _full_footprints(api, compress_mod, decompress, metrics, img, img_h,
             quality_db = _psnr(dec, image)
         assert quality_db > 20.0, (tag, quality_db)
         kinds = _block_kinds(decompress, ctx, blocks)
-        b_p = compress_mod.compress_image(ctx, crop, use_kernels=False)
+        b_p = _plainly(compress_mod.compress_image)(ctx, crop)
         ident = float((b_k == b_p).all(1).mean())
         assert ident >= 0.99, (tag, "crop identical blocks", ident)
         print(f"{at()} full size {tag}: {W}x{H} {'float16' if hdr else 'RGBA8'}"
@@ -1257,7 +1248,7 @@ def _full_features(api, compress_mod, decompress, metrics, testdata,
                       else _psnr(dec, src))
         assert quality_db > 20.0, (tag, quality_db)
         kinds = _block_kinds(decompress, ctx, blocks)
-        b_p = compress_mod.compress_image(ctx, crop, use_kernels=False)
+        b_p = _plainly(compress_mod.compress_image)(ctx, crop)
         ident = float((b_k == b_p).all(1).mean())
         assert ident >= 0.99, (tag, "crop identical blocks", ident)
         texels = D * H * W
@@ -1540,14 +1531,17 @@ def main() -> int:
                   "modes": int(k.modes.shape[0]), **detail}
         account("K1", form, lambda: msearch.mode_search_cuda(*a, **kw),
                 _time_ms(lambda: msearch.mode_search_plain(*a, **kw), 2),
-                nbytes, _ops_k1(pt, a, kw), mae, detail)
+                nbytes, roofline.ops_k1(pt, *a[1].shape, a[4], a[7],
+                                        kw.get("wei2") is not None),
+                mae, detail)
 
+    k2_plain = _plainly(refine.trial1_refine_plain)
     for form in ("pc1", "pc2", "pc3"):
         a, _ = seen[("K2", form)]
         pt, texels = a[0], a[8]
         N, C = texels.shape[0], a[12]
         got = refine.trial1_refine_cuda(*a)
-        want = refine.trial1_refine_plain(*a)
+        want = k2_plain(*a)
         torch.cuda.synchronize()
         detail, mae = _check_refine(
             f"K2 {form}", _records(got, {"w": (a[1], "wpost")}, N, C),
@@ -1558,7 +1552,7 @@ def main() -> int:
                   + _nbytes(*got.values()))
         detail = {"lanes": N * C, "rounds": a[13], **detail}
         account("K2", form, lambda: refine.trial1_refine_cuda(*a),
-                _time_ms(lambda: refine.trial1_refine_plain(*a), 2),
+                _time_ms(lambda: k2_plain(*a), 2),
                 nbytes, _ops_refine(texels.shape[1], pt.pc, 1,
                                     want["err_pre"], want["err_post"]),
                 mae, detail)
@@ -1567,7 +1561,8 @@ def main() -> int:
     pt = a[0]
     N, C = a[11].shape[0], a[13]
     got = refine.trial2_refine_cuda(*a)
-    want = refine.trial2_refine_plain(*a)
+    k3_plain = _plainly(refine.trial2_refine_plain)
+    want = k3_plain(*a)
     torch.cuda.synchronize()
     grids = {"w1": (a[1], "w1post"), "w2": (a[2], "w2post")}
     detail, mae = _check_refine("K3", _records(got, grids, N, C),
@@ -1576,7 +1571,7 @@ def main() -> int:
     nbytes = (_nbytes(*a[1:13], k.tap_w, k.tap_i, k.wt_t, k.wt_i, k.wt_n,
                       k.dm_color, k.pn, k.lohi) + _nbytes(*got.values()))
     account("K3", "two", lambda: refine.trial2_refine_cuda(*a),
-            _time_ms(lambda: refine.trial2_refine_plain(*a), 2), nbytes,
+            _time_ms(lambda: k3_plain(*a), 2), nbytes,
             _ops_refine(a[9].shape[1], 1, 2, want["err_pre"],
                         want["err_post"]),
             mae, {"lanes": N * C, "rounds": a[14], **detail})
@@ -1765,7 +1760,7 @@ def main() -> int:
     crop = np.ascontiguousarray(img[:CROP, SIZE // 2 - CROP // 2:
                                     SIZE // 2 + CROP // 2])
     b_k = api.compress_image(ctx, crop)
-    b_p = compress_mod.compress_image(ctx, crop, use_kernels=False)
+    b_p = _plainly(compress_mod.compress_image)(ctx, crop)
     ident = float((b_k == b_p).all(1).mean())
     d_k = api.decompress_image(ctx, b_k, CROP, CROP)[0]
     d_p = api.decompress_image(ctx, b_p, CROP, CROP)[0]
@@ -1792,11 +1787,13 @@ def main() -> int:
     missing = want_forms - set(seen)
     assert not missing, f"HDR forms not captured: {sorted(missing)}"
 
+    k5_plain = _plainly(refine.refine_round_1plane_plain)
+    k6_plain = _plainly(refine.refine_round_2plane_plain)
     for form in ("boot", "pc1", "pc2", "pc3"):
         a = seen[("K5", form)]
         pt, ncolors = a[0], a[10]
         got = refine.refine_round_1plane_cuda(*a)
-        want = refine.refine_round_1plane_plain(*a)
+        want = k5_plain(*a)
         torch.cuda.synchronize()
         detail, mae = _check_round(f"K5 {form}", got, want, ("grid",))
         k = pt.k
@@ -1804,20 +1801,20 @@ def main() -> int:
                           k.dm_color, k.pn) + _nbytes(*got.values()))
         lanes = a[1].shape[0]
         account("K5", form, lambda: refine.refine_round_1plane_cuda(*a),
-                _time_ms(lambda: refine.refine_round_1plane_plain(*a), 2),
+                _time_ms(lambda: k5_plain(*a), 2),
                 nbytes, _ops_round(a[7].shape[1], 1, lanes,
                                    int(a[4].sum()), ncolors), mae,
                 {"lanes": lanes, **detail})
 
     a = seen[("K6", "two")]
     got = refine.refine_round_2plane_cuda(*a)
-    want = refine.refine_round_2plane_plain(*a)
+    want = k6_plain(*a)
     torch.cuda.synchronize()
     detail, mae = _check_round("K6", got, want, ("grid1", "grid2"))
     k = a[0].k
     lanes = a[1].shape[0]
     account("K6", "two", lambda: refine.refine_round_2plane_cuda(*a),
-            _time_ms(lambda: refine.refine_round_2plane_plain(*a), 2),
+            _time_ms(lambda: k6_plain(*a), 2),
             _nbytes(*a[1:10], k.tap_w, k.tap_i, k.wt_t, k.wt_i, k.wt_n,
                     k.dm_color, k.pn) + _nbytes(*got.values()),
             _ops_round(a[9].shape[1], 2, lanes, int(a[5].sum()), a[11]), mae,
@@ -1825,7 +1822,7 @@ def main() -> int:
 
     a = seen[("K7", "two")]
     got = refine.refine_round_2plane_cuda(*a)
-    want = refine.refine_round_2plane_plain(*a)
+    want = k6_plain(*a)
     torch.cuda.synchronize()
     urel = max(float(((got[u] - want[u]).abs()
                       / want[u].abs().clamp(min=1e-30)).max())
@@ -1834,7 +1831,7 @@ def main() -> int:
     k = a[0].k
     lanes, T = a[1].shape[0], a[9].shape[1]
     account("K7", "two", lambda: refine.refine_round_2plane_cuda(*a),
-            _time_ms(lambda: refine.refine_round_2plane_plain(*a), 2),
+            _time_ms(lambda: k6_plain(*a), 2),
             _nbytes(a[1], a[2], a[3], k.tap_w, k.tap_i)
             + _nbytes(*got.values()), lanes * 16 * T,
             max(float((got[u] - want[u]).abs().max())
@@ -1931,7 +1928,7 @@ def main() -> int:
     crop_h = np.ascontiguousarray(
         img_h[:CROP, HDR_SIZE // 2 - CROP // 2:HDR_SIZE // 2 + CROP // 2])
     b_k = api.compress_image(ctx_hh, crop_h)
-    b_p = compress_mod.compress_image(ctx_hh, crop_h, use_kernels=False)
+    b_p = _plainly(compress_mod.compress_image)(ctx_hh, crop_h)
     ident = float((b_k == b_p).all(1).mean())
     d_k, d_p = (api.decompress_image(ctx_hh, b, CROP, CROP,
                                      out_type="f32")[0] for b in (b_k, b_p))

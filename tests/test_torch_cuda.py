@@ -19,7 +19,7 @@ from astcenc_torch import api, obs, testdata
 from astcenc_torch.codec import compress as tc
 from astcenc_torch.codec import partition_search
 from astcenc_torch.codec import trial
-from astcenc_torch.ops import msearch, psearch
+from astcenc_torch.ops import _build, msearch, psearch
 from astcenc_torch.utils import metrics
 
 pytestmark = pytest.mark.cuda
@@ -43,6 +43,17 @@ def launched():
     yield lambda kernel: obs.collect().counters.get("launch." + kernel, 0)
     obs.disable()
     obs.collect()
+
+
+def _plain(fn, *a, **kw):
+    """fn(*a, **kw) with every router on its plain version."""
+    with _build.plain():
+        return fn(*a, **kw)
+
+
+def _both(fn, *a, **kw):
+    """fn(*a, **kw) through the kernels, then with every router plain."""
+    return fn(*a, **kw), _plain(fn, *a, **kw)
 
 
 def _slice_cfg():
@@ -153,9 +164,9 @@ def test_trial_records_kernels_match_plain(cuda_device):
     st = _random_texels(N, 5, cuda_device)
     ql = torch.full((N,), 11, dtype=torch.int32, device=cuda_device)
     ext = torch.ones(N, dtype=torch.bool, device=cuda_device)
-    rk, rx = ({k: v.cpu().numpy() for k, v in trial.trial1_records(
-        st, ctx.pass_tables("full"), ctx.config, 1, False, ql, ext,
-        use_kernels=k).items()} for k in (True, False))
+    rk, rx = ({k: v.cpu().numpy() for k, v in r.items()} for r in _both(
+        trial.trial1_records, st, ctx.pass_tables("full"), ctx.config, 1,
+        False, ql, ext))
     _check_records(rk, rx, ("fmt", "vals", "mode", "useq", "w64"))
 
 
@@ -170,10 +181,9 @@ def test_trial_records_kernels_partitions(cuda_device, pc):
         0, tabs.count_selected, N)).to(cuda_device)
     ql = torch.full((N,), 11, dtype=torch.int32, device=cuda_device)
     ext = torch.ones(N, dtype=torch.bool, device=cuda_device)
-    rk, rx = ({k: v.cpu().numpy() for k, v in trial.trial1_records(
-        st, ctx.pass_tables("full", pc), ctx.config, 1, False, ql, ext,
-        pot=tabs.pot[rows], counts=tabs.counts[rows],
-        use_kernels=k).items()} for k in (True, False))
+    rk, rx = ({k: v.cpu().numpy() for k, v in r.items()} for r in _both(
+        trial.trial1_records, st, ctx.pass_tables("full", pc), ctx.config,
+        1, False, ql, ext, pot=tabs.pot[rows], counts=tabs.counts[rows]))
     _check_records(rk, rx, ("fmt", "vals", "mode", "useq", "match", "w64"))
 
 
@@ -192,8 +202,8 @@ def test_trial2_records_kernels_match_plain(cuda_device):
     on the candidates whose mode and starting grids agree, and those must
     be at least 99.5% of the live candidates."""
     _, args = _trial2_inputs(cuda_device)
-    rk, rx = ({k: v.cpu().numpy() for k, v in trial.trial2_records(
-        *args, use_kernels=k).items()} for k in (True, False))
+    rk, rx = ({k: v.cpu().numpy() for k, v in r.items()}
+              for r in _both(trial.trial2_records, *args))
     NB, CK = rx["err"].shape
     R = args[2].tune_refinement_limit
     C = CK // (R + 1)
@@ -234,12 +244,12 @@ def test_trial2_refine_kernel_matches_plain(cuda_device):
 
     refine.trial2_refine = grab
     try:
-        trial.trial2_records(*args, use_kernels=False)
+        _plain(trial.trial2_records, *args)
     finally:
         refine.trial2_refine = orig
     a = seen["args"]
     got = refine.trial2_refine_cuda(*a)
-    want = refine.trial2_refine_plain(*a)
+    want = _plain(refine.trial2_refine_plain, *a)
     g = {k: v.cpu().numpy() for k, v in got.items()}
     w = {k: v.cpu().numpy() for k, v in want.items()}
     for k in ("err_pre", "err_post"):
@@ -281,7 +291,7 @@ def test_encode_kernels_match_plain(cuda_device):
     ctx = api.context_alloc(_slice_cfg(), device=cuda_device)
     img = testdata.synthetic_image(96, 96, 3)
     got = api.compress_image(ctx, img)
-    want = tc.compress_image(ctx, img, use_kernels=False)
+    want = _plain(tc.compress_image, ctx, img)
     assert (got == want).all(1).mean() >= 0.9
 
 
@@ -348,14 +358,13 @@ def test_refine_round_kernel_matches_plain(cuda_device, pc):
         kw = {"pot": tabs.pot[rows], "counts": tabs.counts[rows]}
     seen = _first_calls(
         refine, "refine_round_1plane",
-        lambda: trial.trial1_records(st, ctx.pass_tables("full", pc),
-                                     ctx.config, 2, False, ql, ext,
-                                     use_kernels=False, **kw),
+        lambda: _plain(trial.trial1_records, st, ctx.pass_tables("full", pc),
+                       ctx.config, 2, False, ql, ext, **kw),
         lambda a: a[10] > 0)
     for realign in (False, True):                  # bootstrap, then a round
         a = seen[realign]
         _check_round(refine.refine_round_1plane_cuda(*a),
-                     refine.refine_round_1plane_plain(*a), ("grid",))
+                     _plain(refine.refine_round_1plane_plain, *a), ("grid",))
 
 
 def test_refine_round2_kernels_match_plain(cuda_device):
@@ -369,15 +378,16 @@ def test_refine_round2_kernels_match_plain(cuda_device):
     ext = torch.ones((N, 4), dtype=torch.bool, device=cuda_device)
     seen = _first_calls(
         refine, "refine_round_2plane",
-        lambda: trial.trial2_records(st, ctx.pass_tables("two"), ctx.config,
-                                     2, False, ql, ext, use_kernels=False),
+        lambda: _plain(trial.trial2_records, st, ctx.pass_tables("two"),
+                       ctx.config, 2, False, ql, ext),
         lambda a: a[11] > 0)
     a = seen[True]
     _check_round(refine.refine_round_2plane_cuda(*a),
-                 refine.refine_round_2plane_plain(*a), ("grid1", "grid2"))
+                 _plain(refine.refine_round_2plane_plain, *a),
+                 ("grid1", "grid2"))
     a = seen[False]
     got = refine.refine_round_2plane_cuda(*a)
-    want = refine.refine_round_2plane_plain(*a)
+    want = _plain(refine.refine_round_2plane_plain, *a)
     for u in ("undec1", "undec2"):
         assert (got[u] == want[u]).all()
 
@@ -410,8 +420,8 @@ def test_color_unpack_kernel_matches_plain(cuda_device, launched, profile):
     all four outputs, on testdata.unpack_batch's rows (every format with
     all values 0 and all 255, every mode of the HDR RGB, RGB scale and
     alpha decodes, seeded rows) as (N, pc) with N * pc >= 100,000 and a
-    ragged last thread block: one launch per call, none with
-    ``use_kernel=False``."""
+    ragged last thread block: one launch per call, none inside the
+    all-plain scope."""
     from astcenc_torch.ops import color_unquant as cuq
     N, pc = 25013, 4
     fmt, vals = (torch.from_numpy(a).to(cuda_device)
@@ -425,7 +435,7 @@ def test_color_unpack_kernel_matches_plain(cuda_device, launched, profile):
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert (g == w).all()
-    plain = cuq.unpack_color_endpoints(profile, fmt, vals, use_kernel=False)
+    plain = _plain(cuq.unpack_color_endpoints, profile, fmt, vals)
     assert launched("color_unpack") == 0
     assert all((p == w).all() for p, w in zip(plain, want))
 
@@ -436,7 +446,7 @@ def test_hdr_ch_crop_kernels_match_plain(cuda_device):
     ctx = _hdr_ctx(cuda_device)
     img = testdata.synthetic_hdr_image(256, 256, 4, independent_alpha=True)
     got = api.compress_image(ctx, img)
-    want = tc.compress_image(ctx, img, use_kernels=False)
+    want = _plain(tc.compress_image, ctx, img)
     assert (got == want).all()
 
 
@@ -448,7 +458,7 @@ def test_refine_off_ldr_crop_kernels_match_plain(cuda_device, monkeypatch):
     img = testdata.synthetic_image(256, 256, 5, independent_alpha=True)
     got, n = _refine_off(monkeypatch, ctx, img)
     assert n["K8"] > 0 and n["K9"] > 0, n
-    want = tc.compress_image(ctx, img, use_kernels=False)
+    want = _plain(tc.compress_image, ctx, img)
     assert (got == want).all()
 
 
@@ -462,7 +472,7 @@ def test_hdr_encode_kernels_match_plain(cuda_device, launched):
     launched("color_unpack")
     got = api.compress_image(ctx, img)
     assert launched("color_unpack") > 0
-    want = tc.compress_image(ctx, img, use_kernels=False)
+    want = _plain(tc.compress_image, ctx, img)
     assert (got == want).all(1).mean() >= 0.99
     fmts = decompress.endpoint_formats(ctx.torch_decode_tables(),
                                        torch.from_numpy(got).to(cuda_device))
@@ -475,7 +485,7 @@ def test_main_path_encode_kernels_match_plain(cuda_device):
     ctx = _medium_ctx(cuda_device)
     img = testdata.synthetic_image(96, 96, 3, independent_alpha=True)
     got = api.compress_image(ctx, img)
-    want = tc.compress_image(ctx, img, use_kernels=False)
+    want = _plain(tc.compress_image, ctx, img)
     assert (got == want).all(1).mean() >= 0.99
 
 
@@ -581,8 +591,7 @@ def _footprint_inputs(dev, bx, quality, kind, pc, n_blocks, seed):
 
     def grab(key, fn):
         def wrap(*a, **kw):
-            seen.setdefault(key, (a, {k: v for k, v in kw.items()
-                                      if k != "use_kernel"}))
+            seen.setdefault(key, (a, kw))
             return fn(*a, **kw)
         return wrap
 
@@ -592,8 +601,8 @@ def _footprint_inputs(dev, bx, quality, kind, pc, n_blocks, seed):
     try:
         if kind == "two":
             ext = torch.ones((N, 4), dtype=torch.bool, device=dev)
-            trial.trial2_records(st, ctx.pass_tables("two"), ctx.config, 0,
-                                 False, ql, ext, use_kernels=False)
+            _plain(trial.trial2_records, st, ctx.pass_tables("two"),
+                   ctx.config, 0, False, ql, ext)
         else:
             ext = torch.ones(N, dtype=torch.bool, device=dev)
             kw = {}
@@ -602,8 +611,8 @@ def _footprint_inputs(dev, bx, quality, kind, pc, n_blocks, seed):
                 rows = torch.from_numpy(np.random.RandomState(seed).randint(
                     0, tabs.count_selected, N)).to(dev)
                 kw = {"pot": tabs.pot[rows], "counts": tabs.counts[rows]}
-            trial.trial1_records(st, ctx.pass_tables("full", pc), ctx.config,
-                                 0, False, ql, ext, use_kernels=False, **kw)
+            _plain(trial.trial1_records, st, ctx.pass_tables("full", pc),
+                   ctx.config, 0, False, ql, ext, **kw)
     finally:
         for (m, n), fn in saved.items():
             setattr(m, n, fn)
@@ -657,7 +666,8 @@ def test_refine_kernel_footprints(cuda_device, bx, quality, pc):
                              bx + 10 * pc)["K2"]
     N, C = a[8].shape[0], a[12]
     rk = _refine_records(refine.trial1_refine_cuda(*a), a[1], N, C)
-    rx = _refine_records(refine.trial1_refine_plain(*a), a[1], N, C)
+    rx = _refine_records(_plain(refine.trial1_refine_plain, *a), a[1], N,
+                         C)
     live = rx["err"] < 1e29
     np.testing.assert_array_equal(rk["err"] < 1e29, live)
     _check_records(rk, rx, ("fmt", "vals", "w"))
@@ -674,7 +684,8 @@ def test_refine2_kernel_footprints(cuda_device, bx, quality):
     n = {8: 64, 12: 32}[bx]
     a, _ = _footprint_inputs(cuda_device, bx, quality, "two", 1, n,
                              bx + 40)["K3"]
-    got, want = refine.trial2_refine_cuda(*a), refine.trial2_refine_plain(*a)
+    got = refine.trial2_refine_cuda(*a)
+    want = _plain(refine.trial2_refine_plain, *a)
     for k, w in want.items():
         diff = int((_bits(got[k]) != _bits(w)).sum())
         print(f"K3 {bx}x{bx} {k}: {diff} of {w.numel()} values differ")
@@ -702,9 +713,8 @@ def _hdr_footprint_inputs(dev, bx, quality, kind, pc, n_blocks, seed):
         ext = torch.ones((N, 4), dtype=torch.bool, device=dev)
         return _first_calls(
             refine, "refine_round_2plane",
-            lambda: trial.trial2_records(st, ctx.pass_tables("two"),
-                                         ctx.config, profile, False, ql, ext,
-                                         use_kernels=False),
+            lambda: _plain(trial.trial2_records, st, ctx.pass_tables("two"),
+                           ctx.config, profile, False, ql, ext),
             lambda a: a[11] > 0)
     ext = torch.ones(N, dtype=torch.bool, device=dev)
     kw = {}
@@ -715,9 +725,8 @@ def _hdr_footprint_inputs(dev, bx, quality, kind, pc, n_blocks, seed):
         kw = {"pot": tabs.pot[rows], "counts": tabs.counts[rows]}
     return _first_calls(
         refine, "refine_round_1plane",
-        lambda: trial.trial1_records(st, ctx.pass_tables("full", pc),
-                                     ctx.config, profile, False, ql, ext,
-                                     use_kernels=False, **kw),
+        lambda: _plain(trial.trial1_records, st, ctx.pass_tables("full", pc),
+                       ctx.config, profile, False, ql, ext, **kw),
         lambda a: a[10] > 0)
 
 
@@ -747,7 +756,7 @@ def test_refine_round_kernel_footprints(cuda_device, bx, quality, pc):
     for realign in (False, True):
         a = seen[realign]
         got = refine.refine_round_1plane_cuda(*a)
-        want = refine.refine_round_1plane_plain(*a)
+        want = _plain(refine.refine_round_1plane_plain, *a)
         tag = (f"K5 {bx}x{bx} pc{pc} C{a[9]} "
                f"{'round' if realign else 'bootstrap'}")
         _check_round(got, want, ("grid",))
@@ -767,7 +776,7 @@ def test_refine_round2_kernel_footprints(cuda_device, bx, quality):
                               bx + 40)[True]
     assert a[10] == {8: 4, 12: 8}[bx], a[10]
     got = refine.refine_round_2plane_cuda(*a)
-    want = refine.refine_round_2plane_plain(*a)
+    want = _plain(refine.refine_round_2plane_plain, *a)
     _check_round(got, want, ("grid1", "grid2"))
     assert _round_differing(f"K6 {bx}x{bx} C{a[10]}", got, want) == 0
 
@@ -795,9 +804,9 @@ def _psearch_inputs(dev, bx, P, n_blocks, seed):
 
     psearch.line_errors = grab
     try:
-        partition_search.find_best_partition_candidates(
-            st, ctx.partition_tables(P), bx * bx, trial.effective_cw(cfg), P,
-            limit, 2, use_kernels=False)
+        _plain(partition_search.find_best_partition_candidates,
+               st, ctx.partition_tables(P), bx * bx, trial.effective_cw(cfg),
+               P, limit, 2)
     finally:
         psearch.line_errors = orig
     return seen["K4"], ctx.partition_tables(P).seed
@@ -1187,7 +1196,7 @@ def _form_calls(dev, kind, side=48):
     for mod, name, key in wrapped:
         setattr(mod, name, wrap(name, key))
     try:
-        tc.compress_image(ctx, img, use_kernels=False)
+        _plain(tc.compress_image, ctx, img)
     finally:
         for mod, name, _ in wrapped:
             setattr(mod, name, orig[name])
@@ -1230,7 +1239,7 @@ def test_weighted_forms_match_plain(cuda_device, kind, kern):
                        for s, u in zip(static, unit)), key
             continue
         cuda_fn, plain_fn = (getattr(refine, n) for n in _FORM_FNS[kern])
-        got, want = cuda_fn(*a, **kw), plain_fn(*a, **kw)
+        got, want = cuda_fn(*a, **kw), _plain(plain_fn, *a, **kw)
         assert _round_differing(f"{kind} {key}", got, want) == 0, key
         n = {"K2": a[8], "K3": a[11], "K5": a[7]}.get(kern)
         blocks = (n.shape[0] if n is not None
@@ -1263,7 +1272,7 @@ def test_3d_kernels_match_plain(cuda_device, profile, quality):
     vol = testdata.synthetic_volume(12, 11, 17, 9,
                                     hdr=profile != "LDR")
     got = api.compress_image(ctx, vol)
-    want = tc.compress_image(ctx, vol, use_kernels=False)
+    want = _plain(tc.compress_image, ctx, vol)
     same = float((got == want).all(1).mean())
     print(f"6x6x6 {profile} {quality}: {same:.4f} of {got.shape[0]} blocks "
           f"identical")

@@ -53,6 +53,7 @@ from astcenc_torch.codec import compress as tcomp
 from astcenc_torch.codec import decompress as tdec
 from astcenc_torch.codec import trial as ttrial
 from astcenc_torch.ops import color_pack as tpack
+from astcenc_torch.ops import color_pack_hdr as tpackh
 from astcenc_torch.ops import recompute as trecompute
 from astcenc_torch.utils import metrics
 
@@ -312,7 +313,7 @@ def _c5_port_round0():
     _, aux = tcomp.stage1_1plane(ctx, torch.from_numpy(tex))
     seen = {}
     refit, pack = (trecompute.recompute_ideal_colors_2planes,
-                   tpack.pack_color_endpoints_ldr)
+                   tpackh.pack_color_endpoints)
 
     def spy(name, fn):
         def call(*args, **kw):
@@ -322,17 +323,19 @@ def _c5_port_round0():
         return call
 
     trecompute.recompute_ideal_colors_2planes = spy("refit", refit)
-    tpack.pack_color_endpoints_ldr = spy("pack", pack)
+    tpackh.pack_color_endpoints = spy("pack", pack)
     try:
         recs = ttrial.trial2_records(
             aux["st"], ctx.pass_tables("two"), ctx.config, 1, False,
-            aux["quant_limit"], torch.ones((C5_ROWS, 4), dtype=torch.bool),
-            use_kernels=False)
+            aux["quant_limit"], torch.ones((C5_ROWS, 4), dtype=torch.bool))
     finally:
         trecompute.recompute_ideal_colors_2planes = refit
-        tpack.pack_color_endpoints_ldr = pack
+        tpackh.pack_color_endpoints = pack
+    # The pack's (profile, ep0, ep1, rgbs, rgbo, req_fmt, quant_level):
+    # the LDR pack's arguments without the profile and the RGBO vector.
+    _, ep0, ep1, rgbs, _, fmt_req, cq = seen["pack"][0]
     return ({k: v.numpy() for k, v in recs.items()}, seen["refit"],
-            seen["pack"][0], (tex, aux["quant_limit"].numpy()))
+            (ep0, ep1, rgbs, fmt_req, cq), (tex, aux["quant_limit"].numpy()))
 
 
 def write_c5_fixture(path=C5_FIXTURE):

@@ -10,6 +10,7 @@ every buffer, the output shapes and the launch counts are held, everything
 but the kernel itself (``tests/test_torch_cuda.py`` holds that on a card).
 """
 
+import contextlib
 import ctypes
 
 import numpy as np
@@ -145,8 +146,9 @@ def test_pack_kernel_wrapper(fake_card, launched, profile):
     assert got[0].shape == want[0].shape and got[1].shape == want[1].shape
     for g, w in zip(got, want):
         assert g.dtype == torch.int32 and torch.equal(g, w)
-    # use_kernel=False stays plain.
-    got = cph.pack_color_endpoints(profile, *args, use_kernel=False)
+    # The all-plain scope stays plain.
+    with _build.plain():
+        got = cph.pack_color_endpoints(profile, *args)
     assert launched("color_pack") == 0
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -256,18 +258,18 @@ def _unpack_case(seed, n=500, pc=4):
             torch.from_numpy(vals).reshape(n, pc, 8))
 
 
-@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("plain", [False, True])
 @pytest.mark.parametrize("profile", [0, 1, 2, 3])
 def test_unpack_cpu_tensors_take_plain(monkeypatch, launched, profile,
-                                       use_kernel):
-    """CPU tensors take the plain decode whatever ``use_kernel`` says: no
-    launch, the plain version's outputs."""
+                                       plain):
+    """CPU tensors take the plain decode, inside the all-plain scope or
+    not: no launch, the plain version's outputs."""
     def refuse(*args):
         raise AssertionError("the kernel's wrapper was called")
     monkeypatch.setattr(cuq, "unpack_cuda", refuse)
     fmt, vals = _unpack_case(profile)
-    got = cuq.unpack_color_endpoints(profile, fmt, vals,
-                                     use_kernel=use_kernel)
+    with _build.plain() if plain else contextlib.nullcontext():
+        got = cuq.unpack_color_endpoints(profile, fmt, vals)
     want = cuq.unpack_color_endpoints_plain(profile, fmt, vals)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -285,8 +287,8 @@ def test_unpack_other_device_raises():
 def test_unpack_kernel_wrapper(fake_unpack, launched, profile):
     """One launch per decode call, the (N, pc) batch flattened to B and
     restored, int32 buffers even from strided int64 values, the outputs
-    the plain decode's in shape, dtype and value; none with
-    ``use_kernel=False``."""
+    the plain decode's in shape, dtype and value; none inside the
+    all-plain scope."""
     fmt, vals = _unpack_case(30 + profile)
     want = cuq.unpack_color_endpoints_plain(profile, fmt, vals)
     strided = vals.to(torch.int64).transpose(0, 1).contiguous().transpose(
@@ -297,7 +299,8 @@ def test_unpack_kernel_wrapper(fake_unpack, launched, profile):
                                   "stream": 77}]
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
-    got = cuq.unpack_color_endpoints(profile, fmt, vals, use_kernel=False)
+    with _build.plain():
+        got = cuq.unpack_color_endpoints(profile, fmt, vals)
     assert launched("color_unpack") == 0
     for g, w in zip(got, want):
         assert torch.equal(g, w)

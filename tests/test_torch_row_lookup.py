@@ -1,6 +1,7 @@
 """The per-row table gather of astcenc_torch (``gather.row_lookup``, the
-plain version of kernel K8) and the kernel switch, against the JAX package
-on the CPU; and the encoder with the ``refine`` family switched off.
+plain version of kernel K8) and the kernel switch (``_build``), against the
+JAX package on the CPU; and the encoder with the ``refine`` family switched
+off.
 
 The plain gather is held bit for bit against JAX ``row_lookup`` run through
 its Pallas kernel in interpret mode, float32 NaN payloads, +-Inf, -0.0 and
@@ -19,7 +20,7 @@ from astcenc_tpu.ops import gather_pallas as jgather
 from astcenc_tpu.ops import lut as jlut
 from astcenc_torch import api, testdata
 from astcenc_torch.codec import compress as tc
-from astcenc_torch.ops import gather, msearch, refine
+from astcenc_torch.ops import _build, gather, msearch, refine
 
 torch.set_num_threads(1)
 
@@ -107,12 +108,17 @@ def test_kernel_switch_parses_as_jax(monkeypatch, value):
     else:
         monkeypatch.setenv("ASTC_DISABLE_KERNELS", value)
     for name in ("msearch", "refine", "psearch", "gather", "foo", "REFINE"):
-        assert gather.kernel_enabled(name) == jgather._kernel_enabled(name), \
+        assert ((name not in _build.disabled_kernels())
+                == jgather._kernel_enabled(name)), (value, name)
+        # The switch honours msearch and refine only.
+        assert _build.kernel_on(name) == (
+            name not in _build.SWITCHED or jgather._kernel_enabled(name)), \
             (value, name)
 
 
 class _Calls:
-    """Counts calls of module functions, and the use_kernel each got."""
+    """Counts calls of module functions, and what the kernel switch
+    answered for the families ``msearch`` and ``refine`` at each."""
 
     def __init__(self, monkeypatch, targets):
         self.n = {}
@@ -124,15 +130,18 @@ class _Calls:
     def _wrap(self, name, orig):
         def f(*a, **kw):
             self.n[name] = self.n.get(name, 0) + 1
-            self.flags.setdefault(name, set()).add(kw.get("use_kernel"))
+            self.flags.setdefault(name, set()).add(
+                (_build.kernel_on("msearch"), _build.kernel_on("refine")))
             return orig(*a, **kw)
         return f
 
 
 _LDR_TARGETS = [(gather, "row_lookup"), (msearch, "mode_search"),
                 (refine, "trial1_refine"), (refine, "trial2_refine"),
-                (refine, "trial1_refine_plain"),
-                (refine, "trial2_refine_plain")]
+                (refine, "_rounds_1plane"), (refine, "_rounds_2plane"),
+                (refine, "refine_round_1plane_plain"),
+                (refine, "refine_round_2plane_plain"),
+                (refine, "trial1_refine_cuda"), (refine, "trial2_refine_cuda")]
 
 
 def _encode_ldr(monkeypatch, value):
@@ -146,29 +155,38 @@ def _encode_ldr(monkeypatch, value):
 
 @pytest.mark.parametrize("value", ["refine", "msearch,refine"])
 def test_refine_off_encode_matches_default(monkeypatch, value):
-    """A 48x48 6x6 -medium encode with the refinement kernels switched off
-    asks for the plain refinement, with its realign lookups through
-    gather.row_lookup and its gathers routed to the kernels, and gives the
-    default path's blocks."""
+    """A 48x48 6x6 -medium encode with the refinement kernels switched off:
+    inside the encode the switch answers False for ``refine`` (and for
+    ``msearch`` where it is named; True by default), each trial goes
+    through its router to the rounds driver and the plain rounds, whose
+    realign lookups go through gather.row_lookup, and the blocks are the
+    default path's."""
     with monkeypatch.context() as m:
         want, on = _encode_ldr(m, "")
     got, off = _encode_ldr(monkeypatch, value)
-    # Default: K2/K3 asked for (the routers take the plain versions on the
-    # CPU); switched off: the plain refinement, its gathers on the kernels.
-    for name in ("trial1_refine", "trial2_refine"):
-        assert on.flags[name] == {True} and off.flags[name] == {False}
-        assert off.flags[name + "_plain"] == {True}
-    assert on.flags["mode_search"] == {True}
-    assert off.n["row_lookup"] > 0 and off.flags["row_lookup"] == {True}
-    assert off.flags["mode_search"] == {"msearch" not in value}
+    # On the CPU both take the driver with the plain rounds; the switch's
+    # answer inside compress_image is what the card would route by.
+    for calls, answer in ((on, (True, True)),
+                          (off, ("msearch" not in value, False))):
+        for name in ("trial1_refine", "trial2_refine", "_rounds_1plane",
+                     "_rounds_2plane", "refine_round_1plane_plain",
+                     "refine_round_2plane_plain", "mode_search"):
+            assert calls.flags[name] == {answer}, name
+        assert "trial1_refine_cuda" not in calls.n
+        assert "trial2_refine_cuda" not in calls.n
+    assert off.n["row_lookup"] > 0
+    assert off.n["_rounds_1plane"] == off.n["trial1_refine"]
+    assert off.n["_rounds_2plane"] == off.n["trial2_refine"]
     np.testing.assert_array_equal(got, want)
 
 
 def test_refine_off_hdr_encode_matches_default(monkeypatch):
-    """A 24x24 -ch encode with refine off runs the plain HDR rounds (their
-    realign lookups through gather.row_lookup) and gives the default
-    path's blocks."""
-    targets = [(gather, "row_lookup"), (refine, "refine_round_1plane"),
+    """A 24x24 -ch encode with refine off runs the rounds driver with the
+    plain HDR rounds (their realign lookups through gather.row_lookup),
+    the switch answering False for ``refine`` inside it, and gives the
+    default path's blocks."""
+    targets = [(gather, "row_lookup"), (refine, "_rounds_1plane"),
+               (refine, "_rounds_2plane"), (refine, "refine_round_1plane"),
                (refine, "refine_round_2plane"),
                (refine, "refine_round_1plane_plain"),
                (refine, "refine_round_2plane_plain")]
@@ -183,8 +201,10 @@ def test_refine_off_hdr_encode_matches_default(monkeypatch):
             calls = _Calls(m, targets)
             out[value] = (tc.compress_image(ctx, img), calls)
     on, off = out[""][1], out["refine"][1]
-    for name in ("refine_round_1plane", "refine_round_2plane"):
-        assert on.flags[name] == {True} and off.flags[name] == {False}
-        assert off.flags[name + "_plain"] == {True}
-    assert off.n["row_lookup"] > 0 and off.flags["row_lookup"] == {True}
+    for name in ("_rounds_1plane", "_rounds_2plane", "refine_round_1plane",
+                 "refine_round_2plane", "refine_round_1plane_plain",
+                 "refine_round_2plane_plain"):
+        assert on.flags[name] == {(True, True)}
+        assert off.flags[name] == {(True, False)}
+    assert off.n["row_lookup"] > 0
     np.testing.assert_array_equal(out["refine"][0], out[""][0])

@@ -181,7 +181,7 @@ def test_stage2a_matches_jax(ctxs):
     on the same state: the same blocks change, to the same encodings."""
     jctx, tctx = ctxs
     tex = _texels()
-    scb, aux = tc.stage1_1plane(tctx, torch.from_numpy(tex), use_kernels=False)
+    scb, aux = tc.stage1_1plane(tctx, torch.from_numpy(tex))
     elig = ~scb["finished"] & ~aux["skip2p"]
     assert elig.sum() >= 8
     idx = torch.nonzero(elig)[:, 0]
